@@ -1,0 +1,262 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (gen_adversarial_tpu_torch) on one
+NVIDIA GPU. Run from the repository root:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from csrc/ with nvcc, checks each against
+its plain PyTorch version at the shapes the main path gives it, then drives
+the main path: the ids flagship defense (NVAE purify -> VGG11-BN, EoT-32,
+initial noise eps 2.0, float32, random weights from a seed) on a batch of 4
+images. Every phase prints one JSON line with its elapsed seconds; the
+second-to-last line summarises the kernels, and the last line is
+{"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
+(the build included), ends the run with a non-zero exit code and no last
+line. Without a CUDA device it exits non-zero at once. It imports nothing of
+JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import json
+import math
+import subprocess
+import sys
+import time
+
+BUDGET_S = 300.0
+BATCH = 4
+EOT_STEPS = 32
+TIMED_CALLS = 3
+KERNEL_REPS = 20
+# float32 kernel vs plain: both sum 25 products in float32 in another order
+K1_TOL = 1e-5
+# whole defense on the GPU vs on the CPU: ~50 layers of float32 convolutions
+# in other summation orders
+PARITY_RTOL = 1e-4
+# H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+K1_FLOP_PER_ELEMENT = 62  # 25 FMAs, two affines, two SiLUs
+
+T0 = time.monotonic()
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def run_phase(name, fn):
+    t = time.monotonic()
+    out = fn()
+    out = {"phase": name, "seconds": round(time.monotonic() - t, 3), **out}
+    emit(out)
+    elapsed = time.monotonic() - T0
+    if elapsed > BUDGET_S:
+        raise RuntimeError(f"budget of {BUDGET_S:.0f} s passed after phase {name} "
+                           f"({elapsed:.1f} s)")
+    return out
+
+
+def cuda_ms(torch, fn, reps=KERNEL_REPS, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        return fail("no CUDA device: this smoke runs only on the GPU")
+    # a hang (a kernel that never returns) still ends the process
+    faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)
+
+    import torch.nn.functional as F
+    from gen_adversarial_tpu_torch.core import cuda_build
+    from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
+    from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, flagship
+    from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
+    from gen_adversarial_tpu_torch.ops import depthwise as k1
+
+    # float32 means float32: no TF32 in cuDNN convolutions or matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    def device_phase():
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+        line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not available"
+        print(line, flush=True)
+        return {"kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": line,
+                "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    run_phase("device", device_phase)
+
+    def build_phase():
+        built = cuda_build.load(k1.SOURCE)[k1.SOURCE]
+        return {"source": f"gen_adversarial_tpu_torch/csrc/{k1.SOURCE}.cu",
+                "nvcc_s": round(built.seconds, 3), **cuda_build.ptxas_summary(built.log)}
+
+    run_phase("build", build_phase)
+
+    # every (hidden width, size) of the decoder segment in one decode, with
+    # its launches per decode; the folded EoT batch is 32 * B
+    shape_counts = {}
+    for shape in FLAGSHIP_NVAE.decoder_segment_shapes():
+        shape_counts[shape] = shape_counts.get(shape, 0) + 1
+    n = EOT_STEPS * BATCH
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def kernels_phase():
+        rows = []
+        for (c, h), per_decode in shape_counts.items():
+            x = torch.randn(n, c, h, h, device=dev, generator=gen).contiguous(
+                memory_format=torch.channels_last)
+            taps = torch.randn(5, 5, c, device=dev, generator=gen) * 0.2
+            aff = [torch.randn(c, device=dev, generator=gen) * 0.5 + 1 for _ in range(4)]
+            y = k1.depthwise_silu_segment(x, taps, *aff)
+            torch.cuda.synchronize()
+            plain = k1.depthwise_silu_segment_plain(x, taps, *aff)
+            err = (y - plain).abs().max().item()
+            scale = max(1.0, plain.abs().max().item())
+            if not math.isfinite(err) or err > K1_TOL * scale:
+                raise RuntimeError(f"K1 disagrees with its plain version at C={c} H={h}: "
+                                   f"max abs err {err} > {K1_TOL * scale}")
+            w = k1.taps_oihw(taps).contiguous()
+            ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, taps, *aff))
+            plain_ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment_plain(x, taps, *aff))
+            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w, padding=2, groups=c))
+            # what this card reaches for the same bytes: one read of x, one write
+            copy = torch.empty_like(x)
+            copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
+            elements = x.numel()
+            bytes_moved = 2 * elements * 4 + (25 + 4) * c * 4
+            bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
+                                 elements * K1_FLOP_PER_ELEMENT / F32_FLOP_PER_S)
+            rows.append({"C": c, "H": h, "N": n, "per_decode": per_decode,
+                         "max_abs_err": err, "tol": K1_TOL * scale, "kernel_ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                         "copy_ms": copy_ms})
+            del x, y, plain, copy
+        return {"kernel": "depthwise_silu_segment", "shapes": rows}
+
+    kernels = run_phase("kernels", kernels_phase)
+
+    def flagship_phase():
+        t = time.monotonic()
+        defense = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t
+        net = eot_wrap(defense, eot_steps=EOT_STEPS)
+        images = torch.rand(BATCH, 64, 64, 3, device=dev, generator=gen)
+        draws = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        k1.reset_launches()  # counts from here on are the main path's
+        times = []
+        with torch.no_grad():
+            for _ in range(1 + TIMED_CALLS):  # one warm-up, then the timed calls
+                t = time.monotonic()
+                logits = net(images, draws)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t)
+        launches = k1.launches
+        passes = 1 + TIMED_CALLS
+        per_decode = sum(shape_counts.values())
+        if tuple(logits.shape) != (BATCH, 100):
+            raise RuntimeError(f"logits have shape {tuple(logits.shape)}")
+        if not torch.isfinite(logits).all():
+            raise RuntimeError("logits are not all finite")
+        if launches != per_decode * passes:
+            raise RuntimeError(f"K1 launched {launches} times, expected "
+                               f"{per_decode} x {passes} decode passes")
+        timed = sum(times[1:])
+        return {"batch": BATCH, "eot_steps": EOT_STEPS, "initial_noise_eps": 2.0,
+                "dtype": "float32", "weights_build_s": build_s,
+                "logits_shape": list(logits.shape), "finite": True,
+                "k1_launches": launches, "decode_passes": passes,
+                "k1_launches_per_decode": per_decode,
+                "call_s": times, "images_per_s": BATCH * TIMED_CALLS / timed,
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+    flag = run_phase("flagship", flagship_phase)
+    torch.cuda.empty_cache()  # the flagship's weights went with its phase
+
+    def parity_phase():
+        import numpy as np
+        # a small defense on the GPU (kernel path) against the same weights
+        # and draws on the CPU (plain path)
+        cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2,
+                         num_groups_per_scale=2, is_adaptive=False,
+                         num_cells_per_group=1, num_latent_per_group=4, num_mixtures=3)
+        plan = (16, "M", 32, "M")
+        eot, b = 4, 2
+        kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=plan, n_classes=10)
+        cpu = flagship(device="cpu", **kw)
+        gpu = flagship(device=dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(4)
+        x = torch.tensor(rng.rand(b, 32, 32, 3).astype(np.float32))
+        shapes = [(eot * b, 32, 32, 3)] + eps_shapes(cfg, eot * b)
+        draws = [torch.tensor(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+        before = k1.launches
+        with torch.no_grad():
+            want = eot_wrap(cpu, eot)(x, draws)
+            got = eot_wrap(gpu, eot)(x.to(dev), draws).cpu()
+        if k1.launches - before != len(cfg.decoder_segment_shapes()):
+            raise RuntimeError("the GPU defense did not go through K1")
+        err = (got - want).abs().max().item()
+        tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+        if not math.isfinite(err) or err > tol:
+            raise RuntimeError(f"GPU defense disagrees with the CPU one: {err} > {tol}")
+        return {"eot_steps": eot, "batch": b, "max_abs_err": err, "tol": tol}
+
+    run_phase("parity", parity_phase)
+
+    rows = kernels["shapes"]
+
+    def weighted(key):
+        return sum(r[key] * r["per_decode"] for r in rows)
+
+    emit({"kernels": [{
+        "name": "depthwise_silu_segment",
+        "route": "cuda",
+        "source": f"gen_adversarial_tpu_torch/csrc/{k1.SOURCE}.cu",
+        "replaces": "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
+        "launches": flag["k1_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": weighted("kernel_ms"),
+        "plain_ms": weighted("plain_ms"),
+        "bound_ms": weighted("bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": weighted("library_ms"),
+        "library": "torch.nn.functional.conv2d(groups=C), the depthwise only",
+        "copy_ms": weighted("copy_ms"),
+        "per": f"one decode of the EoT-{EOT_STEPS} batch (N={n}): "
+               "the sum over its launches",
+        "share_of_flagship_call": weighted("kernel_ms") / 1e3 / (sum(flag["call_s"][1:]) / TIMED_CALLS),
+    }]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Load the JAX package's flax variable trees into the port's modules.
+
+`variables` is the tree as nested dicts of numpy arrays
+(`{"params": ..., "batch_stats": ...}`, e.g. `jax.tree.map(np.asarray, v)`);
+nothing here imports JAX. Each flax leaf is found in the module by name: a
+flax name like `dec_cells_1_0_0` resolves to an attribute of that name or to
+key `1_0_0` of the ModuleDict attribute `dec_cells`. Layouts change as
+flax -> torch needs:
+
+- convolution kernels HWIO -> OIHW (a depthwise (5,5,1,C) becomes (C,1,5,5));
+- Dense kernels (in, out) -> Linear weights (out, in);
+- BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+- the NVAE's `const_prior` NHWC -> NCHW.
+
+Every parameter and buffer of the module must be set exactly once, with the
+exact shape, or a ValueError says which one is wrong.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _child(module: nn.Module, name: str) -> nn.Module:
+    if name in module._modules:
+        return module._modules[name]
+    for attr, sub in module._modules.items():
+        if isinstance(sub, nn.ModuleDict) and name.startswith(attr + "_"):
+            key = name[len(attr) + 1:]
+            if key in sub:
+                return sub[key]
+    raise ValueError(f"no submodule for flax name {name!r} in {type(module).__name__}")
+
+
+def _leaves(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _target(module: nn.Module, names: tuple, leaf: str, arr: np.ndarray):
+    """(owning torch module, attribute name, array in torch layout)."""
+    owner = module
+    for name in names:
+        owner = _child(owner, name)
+    if isinstance(owner, nn.modules.batchnorm._BatchNorm):
+        return owner, _BN_LEAVES[leaf], arr
+    if isinstance(owner, nn.Conv2d):
+        if leaf == "kernel":
+            return owner, "weight", arr.transpose(3, 2, 0, 1)
+        return owner, leaf, arr
+    if isinstance(owner, nn.Linear):
+        if leaf == "kernel":
+            return owner, "weight", arr.T
+        return owner, leaf, arr
+    if leaf == "const_prior":
+        return owner, leaf, arr.transpose(0, 3, 1, 2)
+    raise ValueError(f"no rule for flax leaf {'/'.join(names + (leaf,))} "
+                     f"on {type(owner).__name__}")
+
+
+@torch.no_grad()
+def from_jax_variables(variables: Mapping, module: nn.Module) -> nn.Module:
+    """Copy a flax variable tree into `module` in place; returns it."""
+    done = {}
+    for collection in ("params", "batch_stats"):
+        for path, arr in _leaves(variables.get(collection, {})):
+            owner, attr, value = _target(module, path[:-1], path[-1], arr)
+            dest = getattr(owner, attr)
+            if tuple(dest.shape) != value.shape:
+                raise ValueError(f"{'/'.join(path)}: flax {arr.shape} -> torch "
+                                 f"{value.shape}, module has {tuple(dest.shape)}")
+            dest.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            done[id(dest)] = "/".join(path)
+    missing = [name for name, t in list(module.named_parameters())
+               + list(module.named_buffers())
+               if id(t) not in done and not name.endswith("num_batches_tracked")]
+    if missing:
+        raise ValueError(f"not in the flax tree: {missing[:8]}"
+                         + (" ..." if len(missing) > 8 else ""))
+    return module

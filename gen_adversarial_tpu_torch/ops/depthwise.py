@@ -1,0 +1,171 @@
+"""The NVAE decoder cell's fused segment,
+    y = silu(DW5x5(silu(x * s0 + b0)) * s1 + b1),
+as a hand-written CUDA kernel for Hopper (`csrc/depthwise_segment.cu`).
+
+Replaces the Pallas TPU kernel of gen_adversarial_tpu/ops/pallas_depthwise.py
+(`depthwise_silu_segment`, body `_kernel`). What bounds it on an H100 is
+memory: per element one read of x and one write of y (8 bytes in float32)
+against about 62 floating-point operations, well under the card's float32
+balance point. So the kernel's one job is to keep the intermediate
+silu(x*s0+b0) out of device memory: it stages an input tile plus its 2-pixel
+halo in shared memory (double-buffered across images with cp.async), applies
+the first affine and SiLU once per staged element, and sums the 25 taps in
+float32 registers (see the source's header).
+
+`x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
+reads it as NHWC); `taps` is (5, 5, C) in the XLA correlation convention
+(no flip), like the JAX function; the four affines are (C,). Taps and affines
+are float32; x and y float32 (a bfloat16 instantiation has its place in the
+source but is not built yet).
+
+On a CUDA tensor `depthwise_silu_segment` launches the kernel or raises; a
+CPU tensor takes `depthwise_silu_segment_plain`. The gradient
+(`torch.autograd.Function`) mirrors the JAX custom VJP `_seg_bwd` in plain
+PyTorch ops, as the JAX backward is plain XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+TAPS = 5
+PAD = 2
+SOURCE = "depthwise_segment"
+
+# kernel launches since the last reset; the plain version never counts
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def taps_oihw(taps: torch.Tensor) -> torch.Tensor:
+    """(5, 5, C) correlation taps -> F.conv2d's depthwise (C, 1, 5, 5)."""
+    return taps.permute(2, 0, 1).unsqueeze(1)
+
+
+def _affine(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def depthwise_silu_segment_plain(x, taps, s0, b0, s1, b1):
+    """The segment in plain PyTorch: silu, depthwise conv (padding 2), silu."""
+    r = F.silu(x * _affine(s0) + _affine(b0))
+    r = F.conv2d(r, taps_oihw(taps), padding=PAD, groups=x.shape[1])
+    return F.silu(r * _affine(s1) + _affine(b1))
+
+
+_lib_handle = None
+
+
+def _lib():
+    """The built library with its C signatures declared (built at first use)."""
+    global _lib_handle
+    if _lib_handle is None:
+        from gen_adversarial_tpu_torch.core.cuda_build import load
+        lib = load(SOURCE)[SOURCE].lib
+        lib.gat_depthwise_segment_f32.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.gat_depthwise_segment_f32.restype = ctypes.c_int
+        lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.gat_cuda_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _check(x, taps, s0, b0, s1, b1):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, C, H, W), got shape {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    if tuple(taps.shape) != (TAPS, TAPS, c):
+        raise ValueError(f"taps must be ({TAPS}, {TAPS}, {c}), got {tuple(taps.shape)}")
+    for name, v in (("s0", s0), ("b0", b0), ("s1", s1), ("b1", b1)):
+        if tuple(v.shape) != (c,):
+            raise ValueError(f"{name} must be ({c},), got {tuple(v.shape)}")
+    tensors = (x, taps, s0, b0, s1, b1)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all arguments must be on one device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the segment takes float32 tensors")
+    if x.is_cuda:
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("x must be contiguous in torch.channels_last format")
+        if not all(t.is_contiguous() for t in tensors[1:]):
+            raise ValueError("taps and affines must be contiguous")
+        if n > 65535:
+            raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
+
+
+def _launch(x, taps, s0, b0, s1, b1):
+    global launches
+    n, c, h, w = x.shape
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if x.numel() == 0:
+        return y
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.gat_depthwise_segment_f32(
+        x.data_ptr(), taps.data_ptr(), s0.data_ptr(), b0.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h, w, c,
+        x.device.index if x.device.index is not None else torch.cuda.current_device(),
+        stream)
+    if rc != 0:
+        raise RuntimeError("depthwise_segment kernel launch failed: "
+                           + lib.gat_cuda_error_string(rc).decode())
+    launches += 1
+    return y
+
+
+def _dsilu(a):
+    s = torch.sigmoid(a)
+    return s * (1 + a * (1 - s))
+
+
+class _Segment(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, taps, s0, b0, s1, b1):
+        ctx.save_for_backward(x, taps, s0, b0, s1, b1)
+        if x.is_cuda:
+            return _launch(x, taps, s0, b0, s1, b1)
+        return depthwise_silu_segment_plain(x, taps, s0, b0, s1, b1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # recompute, as the JAX VJP `_seg_bwd` does
+        x, taps, s0, b0, s1, b1 = ctx.saved_tensors
+        c = x.shape[1]
+        wk = taps_oihw(taps)
+        a0 = x * _affine(s0) + _affine(b0)
+        xa = F.silu(a0)
+        acc = F.conv2d(xa, wk, padding=PAD, groups=c)
+        gi = g * _dsilu(acc * _affine(s1) + _affine(b1))
+        dacc = gi * _affine(s1)
+        # the transpose of a correlation: the same depthwise with flipped taps
+        dxa = F.conv2d(dacc, wk.flip(2, 3), padding=PAD, groups=c)
+        gx0 = dxa * _dsilu(a0)
+        dx = gx0 * _affine(s0)
+        # d taps[dy, dx, c] = sum over n, h, w of xa_pad[h+dy, w+dx] * dacc[h, w]
+        xap = F.pad(xa, (PAD, PAD, PAD, PAD))
+        h, w = x.shape[2], x.shape[3]
+        dtaps = torch.stack([
+            torch.stack([(xap[:, :, i:i + h, j:j + w] * dacc).sum((0, 2, 3))
+                         for j in range(TAPS)])
+            for i in range(TAPS)])
+        dims = (0, 2, 3)
+        return (dx, dtaps, (gx0 * x).sum(dims), gx0.sum(dims),
+                (gi * acc).sum(dims), gi.sum(dims))
+
+
+def depthwise_silu_segment(x, taps, s0, b0, s1, b1):
+    """silu(DW5x5(silu(x*s0+b0)) * s1 + b1) in one pass; differentiable.
+
+    x: (N, C, H, W), channels_last on CUDA; taps (5, 5, C); affines (C,).
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
+    version."""
+    _check(x, taps, s0, b0, s1, b1)
+    return _Segment.apply(x, taps, s0, b0, s1, b1)

@@ -1,0 +1,25 @@
+"""Image ops on NCHW tensors (counterpart of gen_adversarial_tpu/ops/image.py)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def clamp01(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] clamp. torch.clamp's backward passes the cotangent on the
+    inclusive in-range mask, which is the convention the JAX `clamp01`
+    reproduces on purpose."""
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def upsample_bilinear2x(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear resize with align_corners=True (NVAE `SkipUp`)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+
+def adaptive_avg_pool_general(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """torch AdaptiveAvgPool2d, whose windows [floor(i*in/out),
+    ceil((i+1)*in/out)) the JAX function reproduces, for output sizes
+    smaller or larger than the input (VGG pools 2x2 up to 7x7 at 64 px)."""
+    return F.adaptive_avg_pool2d(x, (out_h, out_w))

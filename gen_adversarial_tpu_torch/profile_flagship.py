@@ -1,0 +1,106 @@
+"""Where the flagship's time goes on the GPU: one torch.profiler trace of the
+EoT-32 flagship call (batch 4, initial noise eps 2.0, float32, random weights
+from seed 0): one warm-up call, 2 calls untraced, then 2 calls traced.
+
+    python3 -m gen_adversarial_tpu_torch.profile_flagship
+
+Prints one JSON line: the card (name and power limit as nvidia-smi gives
+them), the host wall time of the same number of calls untraced and traced
+(their difference is the tracing cost), the summed device time of the
+traced kernels and its share of the untraced wall time (the busy share;
+1 minus it is the idle share), the device time by kind of kernel (the K1 segment kernel,
+convolutions, matrix products, elementwise and reductions, other) and the
+ten kernels that took the most time. Needs a CUDA device; exits non-zero
+without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+
+def kind_of(name: str) -> str:
+    n = name.lower()
+    if "segment_kernel" in n:
+        return "k1_depthwise_segment"
+    if any(s in n for s in ("conv", "fprop", "implicit", "winograd", "cudnn", "xmma")):
+        return "convolution"
+    if "gemm" in n or "gemv" in n:
+        return "matmul"
+    if any(s in n for s in ("elementwise", "reduce", "vectorized", "unrolled", "cat",
+                            "upsample", "pool", "softmax", "batch_norm")):
+        return "elementwise_and_reduction"
+    return "other"
+
+
+CALLS = 2
+SEED = 0
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_flagship: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
+    from gen_adversarial_tpu_torch.flagship import flagship
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=30)
+    dev = torch.device("cuda")
+    defense = flagship(initial_noise_eps=2.0, device=dev, seed=SEED)
+    net = eot_wrap(defense, eot_steps=32)
+    images = torch.rand(4, 64, 64, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+    draws = torch.Generator(device=dev).manual_seed(SEED + 1)
+    with torch.no_grad():
+        net(images, draws)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for _ in range(CALLS):
+            net(images, draws)
+        torch.cuda.synchronize()
+        untraced_s = time.monotonic() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            for _ in range(CALLS):
+                net(images, draws)
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t
+
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        total, count = kernels.get(evt.name, (0.0, 0))
+        kernels[evt.name] = (total + evt.time_range.elapsed_us(), count + 1)
+    device_s = sum(us for us, _ in kernels.values()) / 1e6
+    by_kind = {}
+    for name, (us, _) in kernels.items():
+        by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + us / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi.stdout.strip() or "not available",
+        "calls": CALLS, "batch": 4, "eot_steps": 32, "dtype": "float32",
+        "wall_s": wall_s, "untraced_wall_s": untraced_s,
+        "device_kernel_s": device_s if kernels else "not measured",
+        "busy_share": device_s / untraced_s if kernels else "not measured",
+        "by_kind_s": by_kind,
+        "top_kernels": [{"name": n[:120], "s": us / 1e6, "count": c}
+                        for n, (us, c) in top],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""The port's fused decoder segment (gen_adversarial_tpu_torch/ops/depthwise.py)
+against the JAX package's: the plain version and the autograd backward on
+the CPU against `reference_segment` and the Pallas kernel in interpret mode
+(forward, and all six cotangents against jax.vjp). The CUDA kernel itself
+is compared with the plain version on the card by tests/test_torch_gpu.py."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gen_adversarial_tpu.ops.pallas_depthwise import (
+    depthwise_silu_segment as jax_segment, reference_segment)
+from gen_adversarial_tpu_torch.ops import depthwise as k1
+
+# float32 on both sides; the depthwise sums 25 products in another order
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+# cotangents reduce over N*H*W (up to 512 terms of O(10) values) in another
+# order: relative 1e-5 of the largest term
+BWD_TOL = dict(rtol=2e-5, atol=2e-4)
+
+
+def _inputs(c, b=2, h=8, w=8, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    taps = (rng.randn(5, 5, c) * 0.2).astype(np.float32)
+    aff = [(rng.randn(c) * 0.5 + 1.0).astype(np.float32) for _ in range(4)]
+    return [x, taps, *aff]
+
+
+def _torch_args(args, requires_grad=False):
+    x = torch.tensor(args[0]).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    rest = [torch.tensor(a) for a in args[1:]]
+    out = [x, *rest]
+    for t in out:
+        t.requires_grad_(requires_grad)
+    return out
+
+
+def _jax_fn(kind):
+    if kind == "reference":
+        return reference_segment
+    return lambda *a: jax_segment(*a, True)  # Pallas kernel, interpret mode
+
+
+@pytest.mark.parametrize("c,kind", [(96, "reference"), (128, "reference"),
+                                    (128, "pallas_interpret")])
+def test_forward_matches_jax(c, kind):
+    args = _inputs(c, seed=c)
+    want = np.asarray(_jax_fn(kind)(*map(jnp.asarray, args)))
+    got = k1.depthwise_silu_segment(*_torch_args(args))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **FWD_TOL)
+    plain = k1.depthwise_silu_segment_plain(*_torch_args(args))
+    np.testing.assert_allclose(plain.permute(0, 2, 3, 1).numpy(), want, **FWD_TOL)
+
+
+@pytest.mark.parametrize("c,kind", [(96, "reference"), (128, "pallas_interpret")])
+def test_six_cotangents_match_jax_vjp(c, kind):
+    """dx, dtaps, ds0, db0, ds1, db1 of the autograd Function against
+    jax.vjp (autodiff of the reference; the custom VJP of the kernel)."""
+    args = _inputs(c, seed=10 + c)
+    g = np.random.RandomState(99).randn(*args[0].shape).astype(np.float32)
+    _, vjp = jax.vjp(_jax_fn(kind), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(g))
+    targs = _torch_args(args, requires_grad=True)
+    y = k1.depthwise_silu_segment(*targs)
+    y.backward(torch.tensor(g).permute(0, 3, 1, 2))
+    got = [targs[0].grad.permute(0, 2, 3, 1)] + [t.grad for t in targs[1:]]
+    for name, w_, g_ in zip(("dx", "dtaps", "ds0", "db0", "ds1", "db1"), want, got):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), err_msg=name, **BWD_TOL)
+
+
+def test_ragged_spatial_size_matches_jax():
+    """Spatial sizes that are not multiples of the kernel's tiles."""
+    args = _inputs(24, b=1, h=5, w=13, seed=7)
+    want = np.asarray(reference_segment(*map(jnp.asarray, args)))
+    got = k1.depthwise_silu_segment(*_torch_args(args))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **FWD_TOL)
+
+
+def test_cpu_tensor_takes_the_plain_version_and_counts_nothing():
+    k1.reset_launches()
+    k1.depthwise_silu_segment(*_torch_args(_inputs(32)))
+    assert k1.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["taps_shape", "affine_shape", "dtype", "rank"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, taps, s0, b0, s1, b1 = _torch_args(_inputs(32))
+    if bad == "taps_shape":
+        taps = taps[:3]
+    elif bad == "affine_shape":
+        s1 = s1[:16]
+    elif bad == "dtype":
+        x = x.double()
+    else:
+        x = x[0]
+    with pytest.raises((ValueError, TypeError)):
+        k1.depthwise_silu_segment(x, taps, s0, b0, s1, b1)
+
+
+
+@pytest.mark.parametrize("log,want", [
+    ("ptxas info    : Used 48 registers, used 1 barriers, 18432 bytes smem\n"
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n",
+     {"registers": 48, "smem_bytes": 18432, "spill_bytes": 0}),
+    ("    176 bytes stack frame, 176 bytes spill stores, 176 bytes spill loads\n"
+     "ptxas info    : Used 80 registers, used 1 barriers, 176 bytes cumulative stack "
+     "size, 36864 bytes smem\n",
+     {"registers": 80, "smem_bytes": 36864, "spill_bytes": 352}),
+])
+def test_ptxas_summary(log, want):
+    from gen_adversarial_tpu_torch.core.cuda_build import ptxas_summary
+    assert ptxas_summary(log) == want
+
+
+def test_library_name_follows_the_source(tmp_path):
+    """An edited source builds anew: the library's name hashes its text."""
+    from gen_adversarial_tpu_torch.core import cuda_build
+    src = tmp_path / "k.cu"
+    src.write_text("int a;")
+    first = cuda_build._target(src)
+    src.write_text("int b;")
+    assert cuda_build._target(src) != first
+    assert first.parent == cuda_build.BUILD_DIR
+
+
+def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
+    from gen_adversarial_tpu_torch.core import cuda_build
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.find_nvcc()

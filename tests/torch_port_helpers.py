@@ -1,0 +1,53 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package: random flax variables from a numpy seed, their transfer into a port
+module, and NHWC/NCHW moves."""
+
+import jax
+import numpy as np
+import torch
+
+from gen_adversarial_tpu_torch.core.convert import from_jax_variables
+
+
+def random_variables(variables, seed: int):
+    """Every leaf of a flax variable tree (or of its `jax.eval_shape`, which
+    skips compiling the init) drawn from a numpy seed, with
+    scales that keep a deep eval-mode network finite and its BatchNorms
+    non-trivial: kernels N(0, 1/fan_in), biases N(0, 0.05^2), BN scales
+    1 + N(0, 0.1^2), running means N(0, 0.2^2), running variances U(0.5, 1.5),
+    the NVAE's constant prior U(0, 1)."""
+    rng = np.random.RandomState(seed)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(variables)
+    out = []
+    for path, leaf in flat:
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = tuple(leaf.shape)
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            v = rng.randn(*shape) / np.sqrt(fan_in)
+        elif name == "scale":
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        elif name == "mean":
+            v = 0.2 * rng.randn(*shape)
+        elif name == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name == "const_prior":
+            v = rng.uniform(0.0, 1.0, shape)
+        else:
+            v = 0.05 * rng.randn(*shape)
+        out.append(np.asarray(v, np.float32))
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
+def load_port(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Port module with the flax variables loaded, in eval mode."""
+    return from_jax_variables(jax.tree.map(np.asarray, variables), module).eval()
+
+
+def to_nchw(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a)).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def to_nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().permute(0, 2, 3, 1).numpy()
