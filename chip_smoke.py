@@ -4,12 +4,20 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from csrc/ with nvcc, checks each against
-its plain PyTorch version at the shapes the main path gives it, then drives
-the main path: the ids flagship defense (NVAE purify -> VGG11-BN, EoT-32,
-initial noise eps 2.0, float32, random weights from a seed) on a batch of 4
-images. Every phase prints one JSON line with its elapsed seconds; the
-second-to-last line summarises the kernels, and the last line is
+It builds the port's CUDA kernels from csrc/ with nvcc (one process per
+source, all at once), then for each of the port's two paths checks its
+kernel against the kernel's plain PyTorch version at the shapes the path
+gives it and drives the path, float32, random weights from a seed:
+
+- the ids flagship defense (NVAE purify -> VGG11-BN, EoT-32, initial noise
+  eps 2.0) on a batch of 4 images, through K1 (csrc/depthwise_segment.cu);
+- the gender defense (E4E -> StyleGAN2-1024 -> ResNet50, EoT-32, initial
+  noise eps 4.0) on a batch of 2 images at 256 px, through K2
+  (csrc/upfirdn_blur.cu).
+
+Each path is then rehearsed small on the GPU and on the CPU with the same
+weights and draws. Every phase prints one JSON line with its elapsed seconds;
+the second-to-last line summarises the kernels, and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
 (the build included), ends the run with a non-zero exit code and no last
 line. Without a CUDA device it exits non-zero at once. It imports nothing of
@@ -39,6 +47,13 @@ PARITY_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 K1_FLOP_PER_ELEMENT = 62  # 25 FMAs, two affines, two SiLUs
+# the gender defense: batch 2 images x EoT-32, all 32 draws in one batch
+GENDER_BATCH = 2
+GENDER_EOT_CHUNK = None
+# float32 kernel vs plain: 16 products summed in the same order, FMAs or not
+K2_TOL = 1e-5
+K2_FLOP_PER_OUTPUT = 16  # 4 FMAs vertical (per staged column), 4 horizontal
+BLUR_PAD = (1, 1)  # the blur after a 3x3 up-convolution
 
 T0 = time.monotonic()
 
@@ -88,8 +103,12 @@ def main() -> int:
     from gen_adversarial_tpu_torch.core import cuda_build
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, flagship
+    from gen_adversarial_tpu_torch.gender import IMAGE_SIZE, gender_defense
     from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
+    from gen_adversarial_tpu_torch.models.stylegan2.generator import GENERATOR_CHANNELS
+    from gen_adversarial_tpu_torch.models.stylegan2.layers import BLUR_KERNEL
     from gen_adversarial_tpu_torch.ops import depthwise as k1
+    from gen_adversarial_tpu_torch.ops import upfirdn as k2
 
     # float32 means float32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -109,9 +128,11 @@ def main() -> int:
     run_phase("device", device_phase)
 
     def build_phase():
-        built = cuda_build.load(k1.SOURCE)[k1.SOURCE]
-        return {"source": f"gen_adversarial_tpu_torch/csrc/{k1.SOURCE}.cu",
-                "nvcc_s": round(built.seconds, 3), **cuda_build.ptxas_summary(built.log)}
+        # one nvcc per source, all started together
+        built = cuda_build.load(k1.SOURCE, k2.SOURCE)
+        return {"sources": [{"source": f"gen_adversarial_tpu_torch/csrc/{name}.cu",
+                             "nvcc_s": round(b.seconds, 3), **cuda_build.ptxas_summary(b.log)}
+                            for name, b in built.items()]}
 
     run_phase("build", build_phase)
 
@@ -122,6 +143,10 @@ def main() -> int:
         shape_counts[shape] = shape_counts.get(shape, 0) + 1
     n = EOT_STEPS * BATCH
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def reset_counts():
+        k1.reset_launches()
+        k2.reset_launches()
 
     def kernels_phase():
         rows = []
@@ -168,7 +193,7 @@ def main() -> int:
         images = torch.rand(BATCH, 64, 64, 3, device=dev, generator=gen)
         draws = torch.Generator(device=dev).manual_seed(1)
         torch.cuda.reset_peak_memory_stats()
-        k1.reset_launches()  # counts from here on are the main path's
+        reset_counts()  # counts from here on are this path's
         times = []
         with torch.no_grad():
             for _ in range(1 + TIMED_CALLS):  # one warm-up, then the timed calls
@@ -190,8 +215,8 @@ def main() -> int:
         return {"batch": BATCH, "eot_steps": EOT_STEPS, "initial_noise_eps": 2.0,
                 "dtype": "float32", "weights_build_s": build_s,
                 "logits_shape": list(logits.shape), "finite": True,
-                "k1_launches": launches, "decode_passes": passes,
-                "k1_launches_per_decode": per_decode,
+                "k1_launches": launches, "k2_launches": k2.launches,
+                "decode_passes": passes, "k1_launches_per_decode": per_decode,
                 "call_s": times, "images_per_s": BATCH * TIMED_CALLS / timed,
                 "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -228,30 +253,185 @@ def main() -> int:
         return {"eot_steps": eot, "batch": b, "max_abs_err": err, "tol": tol}
 
     run_phase("parity", parity_phase)
+    torch.cuda.empty_cache()
 
-    rows = kernels["shapes"]
+    # the blur after every up-convolution of the 1024-px generator: output
+    # r x r at r = 8 .. 1024, input (r + 1) x (r + 1), one launch per decode
+    # each, on the folded EoT batch of the gender call
+    n_gender = EOT_STEPS * GENDER_BATCH
+    k2_sites = [(GENERATOR_CHANNELS[r], r + 1) for r in (2 ** i for i in range(3, 11))]
 
-    def weighted(key):
-        return sum(r[key] * r["per_decode"] for r in rows)
+    def kernels_k2_phase():
+        # normalized, times the factor 2 of an up-convolution
+        taps = tuple(2.0 * t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
+        kf = torch.tensor(taps[::-1], device=dev)
+        rows = []
+        for c, h in k2_sites:
+            x = torch.randn(n_gender, c, h, h, device=dev, generator=gen).contiguous(
+                memory_format=torch.channels_last)
+            y = k2.upfirdn_blur(x, taps, BLUR_PAD)
+            torch.cuda.synchronize()
+            plain = k2.blur_plain(x, taps, BLUR_PAD)
+            err = (y - plain).abs().max().item()
+            scale = max(1.0, plain.abs().max().item())
+            del plain
+            if not math.isfinite(err) or err > K2_TOL * scale:
+                raise RuntimeError(f"K2 disagrees with its plain version at C={c} H={h}: "
+                                   f"max abs err {err} > {K2_TOL * scale}")
+            w2d = torch.outer(kf, kf).expand(c, 1, len(taps), len(taps)).contiguous()
+            ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD))
+            # at pad (1, 1) one depthwise convolution with the 2-D taps is the
+            # same function
+            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c))
+            copy = torch.empty_like(x)
+            copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
+            del copy
+            bytes_moved = (x.numel() + y.numel()) * 4
+            bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
+                                 y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S)
+            rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_gender,
+                         "per_decode": 1, "elements_in": x.numel(),
+                         "max_abs_err": err, "tol": K2_TOL * scale, "kernel_ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "roofline_share": bound_ms / ms,
+                         "copy_ms": copy_ms})
+            del x, y
+            torch.cuda.empty_cache()
+        # the backward (the same kernel, flipped taps, transposed pads) once,
+        # at a mid shape, against autograd through the plain version
+        c, h = k2_sites[3]
+        x = torch.randn(n_gender, c, h, h, device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        g = torch.randn(n_gender, c, h - 1, h - 1, device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        xk = x.clone().requires_grad_()
+        before = k2.launches
+        k2.upfirdn_blur(xk, taps, BLUR_PAD).backward(g)
+        backward_launches = k2.launches - before
+        xp = x.clone().requires_grad_()
+        k2.blur_plain(xp, taps, BLUR_PAD).backward(g)
+        bwd_err = (xk.grad - xp.grad).abs().max().item()
+        bwd_tol = K2_TOL * max(1.0, xp.grad.abs().max().item())
+        if backward_launches != 2 or not math.isfinite(bwd_err) or bwd_err > bwd_tol:
+            raise RuntimeError(f"K2 backward: {backward_launches} launches, max abs err "
+                               f"{bwd_err} (tol {bwd_tol})")
+        del x, g, xk, xp
+        torch.cuda.empty_cache()
+        return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
+                "shapes": rows,
+                "backward": {"C": c, "H_in": h, "max_abs_err": bwd_err, "tol": bwd_tol,
+                             "launches": backward_launches}}
 
-    emit({"kernels": [{
-        "name": "depthwise_silu_segment",
-        "route": "cuda",
-        "source": f"gen_adversarial_tpu_torch/csrc/{k1.SOURCE}.cu",
-        "replaces": "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
-        "launches": flag["k1_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": weighted("kernel_ms"),
-        "plain_ms": weighted("plain_ms"),
-        "bound_ms": weighted("bound_ms"),
-        "bound_by": "bytes",
-        "library_ms": weighted("library_ms"),
-        "library": "torch.nn.functional.conv2d(groups=C), the depthwise only",
-        "copy_ms": weighted("copy_ms"),
-        "per": f"one decode of the EoT-{EOT_STEPS} batch (N={n}): "
-               "the sum over its launches",
-        "share_of_flagship_call": weighted("kernel_ms") / 1e3 / (sum(flag["call_s"][1:]) / TIMED_CALLS),
-    }]})
+    kernels2 = run_phase("kernels_k2", kernels_k2_phase)
+
+    def gender_phase():
+        t = time.monotonic()
+        defense = gender_defense(device=dev, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t
+        net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=GENDER_EOT_CHUNK)
+        images = torch.rand(GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev,
+                            generator=gen)
+        draws = torch.Generator(device=dev).manual_seed(2)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # counts from here on are this path's
+        times = []
+        with torch.no_grad():
+            for _ in range(1 + TIMED_CALLS):  # one warm-up, then the timed calls
+                t = time.monotonic()
+                logits = net(images, draws)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t)
+        launches = k2.launches
+        passes = 1 + TIMED_CALLS
+        per_decode = len(k2_sites)
+        if tuple(logits.shape) != (GENDER_BATCH, 2):
+            raise RuntimeError(f"logits have shape {tuple(logits.shape)}")
+        if not torch.isfinite(logits).all():
+            raise RuntimeError("logits are not all finite")
+        if launches != per_decode * passes:
+            raise RuntimeError(f"K2 launched {launches} times, expected "
+                               f"{per_decode} x {passes} decode passes")
+        timed = sum(times[1:])
+        return {"batch": GENDER_BATCH, "eot_steps": EOT_STEPS, "eot_chunk": GENDER_EOT_CHUNK,
+                "initial_noise_eps": defense.initial_noise_eps, "stylegan_size": 1024,
+                "image_size": IMAGE_SIZE, "dtype": "float32", "weights_build_s": build_s,
+                "logits_shape": list(logits.shape), "finite": True,
+                "k2_launches": launches, "k1_launches": k1.launches,
+                "decode_passes": passes, "k2_launches_per_decode": per_decode,
+                "call_s": times, "images_per_s": GENDER_BATCH * TIMED_CALLS / timed,
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+    gender = run_phase("gender", gender_phase)
+    torch.cuda.empty_cache()  # the gender weights went with its phase
+
+    def gender_parity_phase():
+        import numpy as np
+        # a small gender defense (32-px generator, full-width encoder, one
+        # ResNet block per stage) on the GPU (kernel path) against the same
+        # weights and draws on the CPU (plain path)
+        size, eot, b, image, n_codes = 32, 4, 2, 64, 8
+        kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1))
+        cpu = gender_defense(device="cpu", **kw)
+        gpu = gender_defense(device=dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(4)
+        x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
+        draws = [torch.tensor(rng.standard_normal(s).astype(np.float32))
+                 for s in [(eot * b, image, image, 3), (n_codes, eot * b, 512)]]
+        before = k2.launches
+        with torch.no_grad():
+            want = eot_wrap(cpu, eot)(x, draws)
+            got = eot_wrap(gpu, eot)(x.to(dev), draws).cpu()
+        launched = k2.launches - before
+        if launched != 3:  # the up-convolutions at 8, 16 and 32 px
+            raise RuntimeError(f"the GPU defense launched K2 {launched} times, expected 3")
+        err = (got - want).abs().max().item()
+        tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+        if not math.isfinite(err) or err > tol:
+            raise RuntimeError(f"GPU gender defense disagrees with the CPU one: {err} > {tol}")
+        return {"stylegan_size": size, "eot_steps": eot, "batch": b, "k2_launches": launched,
+                "max_abs_err": err, "tol": tol}
+
+    run_phase("gender_parity", gender_parity_phase)
+
+    def mean_call_s(phase):
+        return sum(phase["call_s"][1:]) / TIMED_CALLS
+
+    def summary(rows, **entry):
+        def weighted(key):
+            return sum(r[key] * r["per_decode"] for r in rows)
+        out = {"name": entry.pop("name"), "route": "cuda",
+               "source": entry.pop("source"), "replaces": entry.pop("replaces"),
+               "launches": entry.pop("launches"),
+               "max_abs_err": max(r["max_abs_err"] for r in rows),
+               "ms": weighted("kernel_ms"), "plain_ms": weighted("plain_ms"),
+               "bound_ms": weighted("bound_ms"), "bound_by": "bytes",
+               "library_ms": weighted("library_ms"), "copy_ms": weighted("copy_ms")}
+        path, call_s = entry.pop("path")
+        out.update(entry)
+        out[f"share_of_{path}_call"] = out["ms"] / 1e3 / call_s
+        return out
+
+    emit({"kernels": [
+        summary(kernels["shapes"], name="depthwise_silu_segment",
+                source=f"gen_adversarial_tpu_torch/csrc/{k1.SOURCE}.cu",
+                replaces="gen_adversarial_tpu/ops/pallas_depthwise.py:87",
+                launches=flag["k1_launches"],
+                library="torch.nn.functional.conv2d(groups=C), the depthwise only",
+                per=f"one decode of the ids EoT-{EOT_STEPS} batch (N={n}): "
+                    "the sum over its launches",
+                path=("flagship", mean_call_s(flag))),
+        summary(kernels2["shapes"], name="upfirdn_blur",
+                source=f"gen_adversarial_tpu_torch/csrc/{k2.SOURCE}.cu",
+                replaces="gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
+                launches=gender["k2_launches"],
+                library="torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C)",
+                per=f"one decode of the gender EoT-{EOT_STEPS} batch (N={n_gender}): "
+                    "the sum over its launches",
+                path=("gender", mean_call_s(gender))),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     faulthandler.cancel_dump_traceback_later()

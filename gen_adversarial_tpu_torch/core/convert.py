@@ -1,16 +1,23 @@
 """Load the JAX package's flax variable trees into the port's modules.
 
 `variables` is the tree as nested dicts of numpy arrays
-(`{"params": ..., "batch_stats": ...}`, e.g. `jax.tree.map(np.asarray, v)`);
-nothing here imports JAX. Each flax leaf is found in the module by name: a
-flax name like `dec_cells_1_0_0` resolves to an attribute of that name or to
-key `1_0_0` of the ModuleDict attribute `dec_cells`. Layouts change as
-flax -> torch needs:
+(`{"params": ..., "batch_stats": ..., "noise": ..., "buffers": ...}`, e.g.
+`jax.tree.map(np.asarray, v)`); nothing here imports JAX. Each flax leaf is
+found in the module by name: a flax name like `dec_cells_1_0_0` resolves to
+an attribute of that name or to key `1_0_0` of the ModuleDict attribute
+`dec_cells`, and a flax list entry like `convs_3` to item 3 of the
+ModuleList attribute `convs`. Layouts change as flax -> torch needs:
 
 - convolution kernels HWIO -> OIHW (a depthwise (5,5,1,C) becomes (C,1,5,5));
 - Dense kernels (in, out) -> Linear weights (out, in);
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
-- the NVAE's `const_prior` NHWC -> NCHW.
+- the NVAE's `const_prior` NHWC -> NCHW;
+- StyleGAN2: `EqualLinear.weight` (in, out) -> (out, in),
+  `ModulatedConv2d.weight` HWIO -> OIHW, the generator's `const_input`
+  (1, 4, 4, C) -> (1, C, 4, 4), `ToRGB.bias` (1, 1, 1, 3) -> (1, 3, 1, 1),
+  the fixed `noise_{i}` maps (collection `noise`) (1, H, W, 1) -> (1, 1, H, W);
+  `NoiseInjection.weight`, `activate_bias`, `PReLU.alpha` and `latent_avg`
+  (collection `buffers`) keep their layout.
 
 Every parameter and buffer of the module must be set exactly once, with the
 exact shape, or a ValueError says which one is wrong.
@@ -32,10 +39,13 @@ def _child(module: nn.Module, name: str) -> nn.Module:
     if name in module._modules:
         return module._modules[name]
     for attr, sub in module._modules.items():
-        if isinstance(sub, nn.ModuleDict) and name.startswith(attr + "_"):
-            key = name[len(attr) + 1:]
-            if key in sub:
-                return sub[key]
+        if not name.startswith(attr + "_"):
+            continue
+        key = name[len(attr) + 1:]
+        if isinstance(sub, nn.ModuleDict) and key in sub:
+            return sub[key]
+        if isinstance(sub, nn.ModuleList) and key.isdigit() and int(key) < len(sub):
+            return sub[int(key)]
     raise ValueError(f"no submodule for flax name {name!r} in {type(module).__name__}")
 
 
@@ -47,7 +57,29 @@ def _leaves(tree: Mapping, path=()):
             yield path + (k,), np.asarray(v)
 
 
-def _target(module: nn.Module, names: tuple, leaf: str, arr: np.ndarray):
+def _nhwc_to_nchw(a: np.ndarray) -> np.ndarray:
+    return a.transpose(0, 3, 1, 2)
+
+
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
+
+
+# leaves of the port's own modules, by (class name, flax leaf name)
+_MODULE_LEAVES = {
+    ("EqualLinear", "weight"): lambda a: a.T,
+    ("EqualLinear", "bias"): _same,
+    ("ModulatedConv2d", "weight"): lambda a: a.transpose(3, 2, 0, 1),
+    ("Generator", "const_input"): _nhwc_to_nchw,
+    ("ToRGB", "bias"): _nhwc_to_nchw,
+    ("NoiseInjection", "weight"): _same,
+    ("StyledConv", "activate_bias"): _same,
+    ("PReLU", "alpha"): _same,
+    ("PSP", "latent_avg"): _same,
+}
+
+
+def _target(module: nn.Module, collection: str, names: tuple, leaf: str, arr: np.ndarray):
     """(owning torch module, attribute name, array in torch layout)."""
     owner = module
     for name in names:
@@ -63,7 +95,12 @@ def _target(module: nn.Module, names: tuple, leaf: str, arr: np.ndarray):
             return owner, "weight", arr.T
         return owner, leaf, arr
     if leaf == "const_prior":
-        return owner, leaf, arr.transpose(0, 3, 1, 2)
+        return owner, leaf, _nhwc_to_nchw(arr)
+    if collection == "noise" and type(owner).__name__ == "Generator":
+        return owner, leaf, _nhwc_to_nchw(arr)
+    rule = _MODULE_LEAVES.get((type(owner).__name__, leaf))
+    if rule is not None:
+        return owner, leaf, rule(arr)
     raise ValueError(f"no rule for flax leaf {'/'.join(names + (leaf,))} "
                      f"on {type(owner).__name__}")
 
@@ -72,15 +109,18 @@ def _target(module: nn.Module, names: tuple, leaf: str, arr: np.ndarray):
 def from_jax_variables(variables: Mapping, module: nn.Module) -> nn.Module:
     """Copy a flax variable tree into `module` in place; returns it."""
     done = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "noise", "buffers"):
         for path, arr in _leaves(variables.get(collection, {})):
-            owner, attr, value = _target(module, path[:-1], path[-1], arr)
+            owner, attr, value = _target(module, collection, path[:-1], path[-1], arr)
             dest = getattr(owner, attr)
             if tuple(dest.shape) != value.shape:
                 raise ValueError(f"{'/'.join(path)}: flax {arr.shape} -> torch "
                                  f"{value.shape}, module has {tuple(dest.shape)}")
+            if id(dest) in done:
+                raise ValueError(f"{collection}/{'/'.join(path)} sets the tensor that "
+                                 f"{done[id(dest)]} already set")
             dest.copy_(torch.from_numpy(np.ascontiguousarray(value)))
-            done[id(dest)] = "/".join(path)
+            done[id(dest)] = f"{collection}/{'/'.join(path)}"
     missing = [name for name, t in list(module.named_parameters())
                + list(module.named_buffers())
                if id(t) not in done and not name.endswith("num_batches_tracked")]

@@ -1,15 +1,16 @@
 """The purify-based defense (counterpart of gen_adversarial_tpu/defenses/base.py):
-L2-ball gaussian noise (or the unconditional clamp at eps 0) -> purify ->
-classifier. Images are NHWC in [0, 1], as in the JAX package. The purifier
-takes [0, 1] images (the NVAE normalizes inside), which is the JAX
-`normalize_before_purify=False` of the NVAE family.
+L2-ball gaussian noise (or the unconditional clamp at eps 0) -> optional
+(x - 0.5) / 0.5 -> purify -> optional * 0.5 + 0.5 -> classifier. Images are
+NHWC in [0, 1], as in the JAX package. The NVAE family purifies [0, 1]
+images (it normalizes inside: normalize_before_purify=False); the StyleGAN2
+families purify in [-1, 1] (normalize_before_purify=True).
 
 Random draws come from a `Draws` source (models/nvae/distributions.py): a
 `torch.Generator`, or recorded tensors replayed in order. One call draws the
 input noise first (NHWC, the image's shape; only when initial_noise_eps > 0),
-then the purifier's eps. Gaussian blur, the 0.5/0.5 normalisation around
-purify (StyleGAN2 families), remat and compute_dtype are not used by the
-supported configurations and are not ported yet.
+then the purifier's draws (the NVAE's eps, or the E4E mix noise). Gaussian
+blur, remat and compute_dtype are not used by the supported configurations
+and are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ class MLVGMDefense(nn.Module):
 
     def __init__(self, purifier: nn.Module, classifier: nn.Module, alphas: torch.Tensor,
                  purify_encode: Callable, purify_decode: Callable,
-                 classifier_apply: Callable, initial_noise_eps: float = 0.0):
+                 classifier_apply: Callable, initial_noise_eps: float = 0.0,
+                 normalize_before_purify: bool = False):
         super().__init__()
         self.purifier = purifier
         self.classifier = classifier
@@ -51,6 +53,13 @@ class MLVGMDefense(nn.Module):
         self.purify_decode = purify_decode
         self.classifier_apply = classifier_apply
         self.initial_noise_eps = initial_noise_eps
+        self.normalize_before_purify = normalize_before_purify
+
+    def _normalize(self, x):
+        return (x - 0.5) / 0.5 if self.normalize_before_purify else x
+
+    def _denormalize(self, out):
+        return out * 0.5 + 0.5 if self.normalize_before_purify else out
 
     def preprocess(self, x, draws: Draws | None):
         if self.initial_noise_eps > 0:
@@ -61,8 +70,8 @@ class MLVGMDefense(nn.Module):
 
     def purified(self, x, draws):
         draws = as_draws(draws)
-        return self.purify_decode(self.alphas, self.purify_encode(self.preprocess(x, draws)),
-                                  draws)
+        state = self.purify_encode(self._normalize(self.preprocess(x, draws)))
+        return self._denormalize(self.purify_decode(self.alphas, state, draws))
 
     @property
     def supports_shared_encode(self) -> bool:
@@ -75,10 +84,10 @@ class MLVGMDefense(nn.Module):
         supports_shared_encode."""
         if not self.supports_shared_encode:
             raise ValueError("shared encode needs initial_noise_eps == 0")
-        return self.purify_encode(self.preprocess(x, None))
+        return self.purify_encode(self._normalize(self.preprocess(x, None)))
 
     def purified_from_state(self, state, draws):
-        return self.purify_decode(self.alphas, state, as_draws(draws))
+        return self._denormalize(self.purify_decode(self.alphas, state, as_draws(draws)))
 
     def state_call(self, state, draws):
         return self.classifier_apply(self.purified_from_state(state, draws)).float()

@@ -12,7 +12,7 @@ weight-sized is made on the host (the VGG head alone is 25088 x 25088 float32,
 from __future__ import annotations
 
 import math
-from collections.abc import Sequence
+from collections.abc import Callable, Sequence
 
 import numpy as np
 import torch
@@ -38,28 +38,36 @@ def alpha_schedule(n_latents: int) -> np.ndarray:
 
 
 @torch.no_grad()
-def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every parameter and buffer from `generator`, in a fixed order:
-    conv/linear weights N(0, 1/fan_in), biases N(0, 0.01^2), BatchNorm
-    weights 1 + N(0, 0.1^2) and running variances U(0.5, 1.5), other
-    tensors (running means, the NVAE's constant prior) N(0, 0.1^2) or U(0, 1)."""
+def init_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
+                 generator: torch.Generator) -> None:
+    """Conv/linear weights N(0, 1/fan_in), biases N(0, 0.01^2), BatchNorm
+    weights 1 + N(0, 0.1^2) and running variances U(0.5, 1.5), other tensors
+    (running means, the NVAE's constant prior) N(0, 0.1^2) or U(0, 1)."""
+    if not t.is_floating_point():
+        t.zero_()
+    elif name == "weight" and isinstance(mod, (nn.Conv2d, nn.Linear)):
+        t.normal_(0.0, 1.0 / math.sqrt(t[0].numel()), generator=generator)
+    elif name == "weight":  # BatchNorm
+        t.normal_(1.0, 0.1, generator=generator)
+    elif name == "running_var":
+        t.uniform_(0.5, 1.5, generator=generator)
+    elif name == "bias":
+        t.normal_(0.0, 0.01, generator=generator)
+    elif name == "const_prior":
+        t.uniform_(0.0, 1.0, generator=generator)
+    else:
+        t.normal_(0.0, 0.1, generator=generator)
+
+
+@torch.no_grad()
+def random_init_(module: nn.Module, generator: torch.Generator,
+                 init: Callable = init_tensor_) -> nn.Module:
+    """Fill every parameter and buffer from `generator` with `init(module,
+    name, tensor, generator)`, in a fixed order."""
     for mod in module.modules():
         for name, t in list(mod.named_parameters(recurse=False)) + \
                 list(mod.named_buffers(recurse=False)):
-            if not t.is_floating_point():
-                t.zero_()
-            elif name == "weight" and isinstance(mod, (nn.Conv2d, nn.Linear)):
-                t.normal_(0.0, 1.0 / math.sqrt(t[0].numel()), generator=generator)
-            elif name == "weight":  # BatchNorm
-                t.normal_(1.0, 0.1, generator=generator)
-            elif name == "running_var":
-                t.uniform_(0.5, 1.5, generator=generator)
-            elif name == "bias":
-                t.normal_(0.0, 0.01, generator=generator)
-            elif name == "const_prior":
-                t.uniform_(0.0, 1.0, generator=generator)
-            else:
-                t.normal_(0.0, 0.1, generator=generator)
+            init(mod, name, t, generator)
     return module
 
 

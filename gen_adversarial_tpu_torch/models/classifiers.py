@@ -1,15 +1,17 @@
-"""VGG11-BN with the reference's projector head, on NCHW tensors
-(counterpart of `VGG11BN` and `Projector` in
-gen_adversarial_tpu/models/classifiers.py), built in eval mode.
+"""VGG11-BN and ResNet50 with the reference's projector head, on NCHW
+tensors (counterpart of `VGG11BN`, `ResNetBackbone`, `ResNet50` and
+`Projector` in gen_adversarial_tpu/models/classifiers.py), built in eval mode.
 
 Submodule names follow the JAX variable tree (`conv0`, `bn0`, ...,
-`classifier.fc0/bn/fc1`) so `core/convert.py` maps weights by name. ResNet50
-and ResNeXt50 serve the StyleGAN2 families and come with their slice.
+`classifier.fc0/bn/fc1`; `layer2_0.downsample_conv`, `fc.fc0`) so
+`core/convert.py` maps weights by name. ResNeXt50 (grouped 3x3 convolutions)
+serves the cars family and comes with its slice.
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -63,3 +65,63 @@ class VGG11BN(nn.Module):
         # flatten is channel-major, as torch's NCHW view(b, -1)
         x = adaptive_avg_pool_general(x, 7, 7)
         return self.classifier(torch.flatten(x, 1))
+
+
+class Bottleneck(nn.Module):
+    """torchvision ResNet Bottleneck: 1x1 -> 3x3 (the stride is here) -> 1x1,
+    with a strided 1x1 + BN shortcut when the shape changes."""
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, device=None):
+        super().__init__()
+        width, out_ch = planes, planes * 4
+        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False, device=device)
+        self.bn1 = nn.BatchNorm2d(width, eps=1e-5, device=device)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, bias=False, device=device)
+        self.bn2 = nn.BatchNorm2d(width, eps=1e-5, device=device)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False, device=device)
+        self.bn3 = nn.BatchNorm2d(out_ch, eps=1e-5, device=device)
+        if in_ch != out_ch or stride != 1:
+            self.downsample_conv = nn.Conv2d(in_ch, out_ch, 1, stride, bias=False,
+                                             device=device)
+            self.downsample_bn = nn.BatchNorm2d(out_ch, eps=1e-5, device=device)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        if hasattr(self, "downsample_conv"):
+            x = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + x)
+
+
+class ResNetBackbone(nn.Module):
+    """ResNet-50 family with the projector head: 7x7/2 stem, 3x3/2 max pool
+    (padding 1), four stages of bottlenecks (`layers` of them), global mean."""
+
+    def __init__(self, n_classes: int, layers: Sequence[int] = (3, 4, 6, 3), device="cuda"):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False, device=device)
+        self.bn1 = nn.BatchNorm2d(64, eps=1e-5, device=device)
+        self.blocks = []
+        in_ch = 64
+        for stage, n_blocks in enumerate(layers):
+            planes = 64 * 2 ** stage
+            for i in range(n_blocks):
+                name = f"layer{stage + 1}_{i}"
+                self.add_module(name, Bottleneck(in_ch, planes, 2 if stage > 0 and i == 0
+                                                 else 1, device=device))
+                self.blocks.append(name)
+                in_ch = planes * 4
+        self.fc = Projector(in_ch, n_classes, device=device)
+        self.eval()
+
+    def forward(self, x):
+        """x: (B, 3, H, W) -> logits (B, n_classes)."""
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        return self.fc(x.mean((2, 3)))
+
+
+ResNet50 = partial(ResNetBackbone, layers=(3, 4, 6, 3))

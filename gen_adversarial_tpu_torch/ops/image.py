@@ -23,3 +23,15 @@ def adaptive_avg_pool_general(x: torch.Tensor, out_h: int, out_w: int) -> torch.
     ceil((i+1)*in/out)) the JAX function reproduces, for output sizes
     smaller or larger than the input (VGG pools 2x2 up to 7x7 at 64 px)."""
     return F.adaptive_avg_pool2d(x, (out_h, out_w))
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NCHW images. align_corners=False is the half-pixel
+    convention (torch F.interpolate's default, jax.image.resize);
+    align_corners=True samples at i * (in - 1) / (out - 1), the convention of
+    the E4E feature-pyramid upsample."""
+    if tuple(x.shape[2:]) == (out_h, out_w):
+        return x
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=align_corners)

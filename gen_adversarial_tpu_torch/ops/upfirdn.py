@@ -1,0 +1,144 @@
+"""The StyleGAN2 separable FIR blur, upfirdn2d(x, taps, up=1, down=1, pad),
+as a hand-written CUDA kernel for Hopper (`csrc/upfirdn_blur.cu`, K2).
+
+Replaces the Pallas TPU kernel of gen_adversarial_tpu/ops/pallas_upfirdn.py
+(`pallas_blur` / `pallas_blur_diff`, body `_blur_kernel`). What bounds it on
+an H100 is memory: per element about one read of x and one write of y
+(8 bytes in float32) against 2 * taps multiply-adds. The kernel reads x once
+into a shared-memory tile with its halo, zero-padding at the edges as it
+loads (no padded copy of x), runs the vertical then the horizontal pass, and
+writes y once (see the source's header).
+
+`x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
+reads it as NHWC), float32. `taps` are the 1-D separable factor as host
+numbers (Python floats or a numpy array), in upfirdn order: the kernel flips
+them, as the JAX function does. `pad` is (pad0, pad1) on both spatial axes.
+
+On a CUDA tensor `upfirdn_blur` launches the kernel or raises; a CPU tensor
+takes `blur_plain`. The gradient (`torch.autograd.Function`) is the JAX
+custom VJP `_blur_bwd`: the same blur of the cotangent with the taps flipped
+and pad (taps - 1 - pad0, taps - 1 - pad1), through the same kernel. The taps
+are fixed constants and get no cotangent.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections.abc import Sequence
+
+import torch
+
+from gen_adversarial_tpu_torch.ops.upfirdn2d import upfirdn2d
+
+SOURCE = "upfirdn_blur"
+KERNEL_TAPS = (3, 4)  # the taps counts the kernel is instantiated for
+
+# kernel launches since the last reset; the plain version never counts
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def out_size(size: int, taps: int, pad: Sequence[int]) -> int:
+    return size + pad[0] + pad[1] - taps + 1
+
+
+def blur_plain(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
+    """The blur in plain PyTorch: two 1-D depthwise convolutions with flipped
+    taps after zero padding (ops/upfirdn2d.upfirdn2d with a 1-D kernel)."""
+    k = torch.tensor([float(t) for t in taps], dtype=torch.float32, device=x.device)
+    return upfirdn2d(x, k, up=1, down=1, pad=tuple(pad))
+
+
+_lib_handle = None
+
+
+def _lib():
+    """The built library with its C signatures declared (built at first use)."""
+    global _lib_handle
+    if _lib_handle is None:
+        from gen_adversarial_tpu_torch.core.cuda_build import load
+        lib = load(SOURCE)[SOURCE].lib
+        lib.gat_upfirdn_blur_f32.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.gat_upfirdn_blur_f32.restype = ctypes.c_int
+        lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.gat_cuda_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, C, H, W), got shape {tuple(x.shape)}")
+    if len(pad) != 2:
+        raise ValueError(f"pad must be (pad0, pad1), got {pad}")
+    h, w = x.shape[2], x.shape[3]
+    if min(out_size(h, len(taps), pad), out_size(w, len(taps), pad)) <= 0:
+        raise ValueError(f"{len(taps)} taps with pad {tuple(pad)} leave no output "
+                         f"of a {h}x{w} image")
+    if x.is_cuda:
+        if x.dtype != torch.float32:
+            raise TypeError("the blur kernel takes float32 tensors")
+        if len(taps) not in KERNEL_TAPS:
+            raise ValueError(f"the blur kernel takes {KERNEL_TAPS} taps, got {len(taps)}")
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("x must be contiguous in torch.channels_last format")
+        if x.shape[0] > 65535:
+            raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
+
+
+def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
+    global launches
+    n, c, h, w = x.shape
+    y = torch.empty((n, c, out_size(h, len(taps), pad), out_size(w, len(taps), pad)),
+                    device=x.device, dtype=x.dtype, memory_format=torch.channels_last)
+    if y.numel() == 0:
+        return y
+    lib = _lib()
+    host_taps = (ctypes.c_float * len(taps))(*taps)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.gat_upfirdn_blur_f32(
+        x.data_ptr(), y.data_ptr(), n, h, w, c, int(pad[0]), int(pad[1]), host_taps,
+        len(taps), x.device.index if x.device.index is not None else torch.cuda.current_device(),
+        stream)
+    if rc != 0:
+        raise RuntimeError("upfirdn_blur kernel launch failed: "
+                           + lib.gat_cuda_error_string(rc).decode())
+    launches += 1
+    return y
+
+
+def _blur(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
+    _check(x, taps, pad)
+    if x.is_cuda:
+        return _launch(x, taps, pad)
+    return blur_plain(x, taps, pad)
+
+
+class _Blur(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, taps, pad):
+        ctx.taps, ctx.pad = taps, pad
+        return _blur(x, taps, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transposed blur: flipped taps, pad (taps-1-pad0, taps-1-pad1)
+        t = len(ctx.taps)
+        gpad = (t - 1 - ctx.pad[0], t - 1 - ctx.pad[1])
+        if g.is_cuda:
+            g = g.contiguous(memory_format=torch.channels_last)
+        return _blur(g, ctx.taps[::-1], gpad), None, None
+
+
+def upfirdn_blur(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
+    """upfirdn2d(x, taps, up=1, down=1, pad) in one pass; differentiable in x.
+
+    x: (N, C, H, W), channels_last float32 on CUDA. A CUDA tensor launches
+    the kernel (or raises); a CPU tensor runs the plain version."""
+    return _Blur.apply(x, tuple(float(t) for t in taps), tuple(int(p) for p in pad))

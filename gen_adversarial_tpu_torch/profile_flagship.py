@@ -1,21 +1,24 @@
-"""Where the flagship's time goes on the GPU: one torch.profiler trace of the
-EoT-32 flagship call (batch 4, initial noise eps 2.0, float32, random weights
-from seed 0): one warm-up call, 2 calls untraced, then 2 calls traced.
+"""Where a defense call's time goes on the GPU: one torch.profiler trace of
+the EoT-32 call of the ids flagship (batch 4, initial noise eps 2.0) or of
+the gender defense (batch 2 at 256 px, initial noise eps 4.0), float32,
+random weights from seed 0: one warm-up call, 2 calls untraced, then 2 calls
+traced.
 
-    python3 -m gen_adversarial_tpu_torch.profile_flagship
+    python3 -m gen_adversarial_tpu_torch.profile_flagship [--family ids|gender]
 
 Prints one JSON line: the card (name and power limit as nvidia-smi gives
 them), the host wall time of the same number of calls untraced and traced
 (their difference is the tracing cost), the summed device time of the
 traced kernels and its share of the untraced wall time (the busy share;
-1 minus it is the idle share), the device time by kind of kernel (the K1 segment kernel,
-convolutions, matrix products, elementwise and reductions, other) and the
-ten kernels that took the most time. Needs a CUDA device; exits non-zero
-without one.
+1 minus it is the idle share), the device time by kind of kernel (the K1
+segment kernel, the K2 blur kernel, convolutions, matrix products,
+elementwise and reductions, other) and the ten kernels that took the most
+time. Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -26,6 +29,8 @@ def kind_of(name: str) -> str:
     n = name.lower()
     if "segment_kernel" in n:
         return "k1_depthwise_segment"
+    if "blur_kernel" in n:
+        return "k2_upfirdn_blur"
     if any(s in n for s in ("conv", "fprop", "implicit", "winograd", "cudnn", "xmma")):
         return "convolution"
     if "gemm" in n or "gemv" in n:
@@ -38,9 +43,15 @@ def kind_of(name: str) -> str:
 
 CALLS = 2
 SEED = 0
+# family -> (batch, image size, initial noise eps)
+FAMILIES = {"ids": (4, 64, 2.0), "gender": (2, 256, 4.0)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--family", choices=sorted(FAMILIES), default="ids")
+    family = parser.parse_args(argv).family
+    batch, size, eps = FAMILIES[family]
     import torch
     if not torch.cuda.is_available():
         print("profile_flagship: no CUDA device", file=sys.stderr)
@@ -49,6 +60,7 @@ def main() -> int:
 
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import flagship
+    from gen_adversarial_tpu_torch.gender import gender_defense
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,9 +68,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30)
     dev = torch.device("cuda")
-    defense = flagship(initial_noise_eps=2.0, device=dev, seed=SEED)
+    make = flagship if family == "ids" else gender_defense
+    defense = make(initial_noise_eps=eps, device=dev, seed=SEED)
     net = eot_wrap(defense, eot_steps=32)
-    images = torch.rand(4, 64, 64, 3, device=dev,
+    images = torch.rand(batch, size, size, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED))
     draws = torch.Generator(device=dev).manual_seed(SEED + 1)
     with torch.no_grad():
@@ -91,7 +104,8 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi.stdout.strip() or "not available",
-        "calls": CALLS, "batch": 4, "eot_steps": 32, "dtype": "float32",
+        "family": family, "calls": CALLS, "batch": batch, "image_size": size,
+        "initial_noise_eps": eps, "eot_steps": 32, "dtype": "float32",
         "wall_s": wall_s, "untraced_wall_s": untraced_s,
         "device_kernel_s": device_s if kernels else "not measured",
         "busy_share": device_s / untraced_s if kernels else "not measured",

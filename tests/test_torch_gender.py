@@ -1,0 +1,167 @@
+"""The port's gender slice against the JAX package on the CPU: ResNet50 with
+the projector head, and the gender defense end to end (MLVGMDefense with
+normalize_before_purify + the E4E purify split + EoT) at a reduced size:
+a 32-px generator (full-width IR-SE-50 encoder, 8 styles) on 64-px images,
+a one-block-per-stage ResNet, EoT-4, batch 2. The input noise and the E4E
+mix noise are drawn by numpy and replayed on both sides, as
+tests/test_torch_slice.py replays the NVAE eps. Also: the 18 alphas against
+the YAML config, and a CPU rehearsal of the factory."""
+
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gen_adversarial_tpu.core.config import DefenseConfig
+from gen_adversarial_tpu.defenses.base import MLVGMDefense as JaxDefense
+from gen_adversarial_tpu.defenses.base import make_classifier_apply as jax_classifier_apply
+from gen_adversarial_tpu.defenses.eot import eot_wrap as jax_eot_wrap
+from gen_adversarial_tpu.defenses.purify import _compose
+from gen_adversarial_tpu.defenses.purify import make_e4e_purify_split as jax_split
+from gen_adversarial_tpu.models.classifiers import ResNet50 as JaxResNet50
+from gen_adversarial_tpu.models.classifiers import ResNetBackbone as JaxResNet
+from gen_adversarial_tpu.models.e4e.psp import PSP as JaxPSP
+from gen_adversarial_tpu_torch.defenses.base import MLVGMDefense, make_classifier_apply
+from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
+from gen_adversarial_tpu_torch.defenses.purify import make_e4e_purify_split
+from gen_adversarial_tpu_torch.gender import GENDER_ALPHAS, gender_alphas, gender_defense
+from gen_adversarial_tpu_torch.models.classifiers import ResNet50, ResNetBackbone
+from gen_adversarial_tpu_torch.models.e4e.psp import PSP
+from gen_adversarial_tpu_torch.ops import upfirdn as k2
+from tests.torch_port_helpers import load_port, random_variables, to_nchw
+
+REPO = Path(__file__).resolve().parent.parent
+SIZE = 32
+IMAGE = 64
+B = 2
+KEY = jax.random.PRNGKey(0)
+SMALL_LAYERS = (1, 1, 1, 1)
+# ResNet50: ~50 float32 convolution layers in another summation order,
+# logits O(1)
+CLF_TOL = dict(rtol=1e-4, atol=1e-5)
+# the defense: encoder (~60 layers), generator, ResNet, then an EoT mean
+DEFENSE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _images(seed, size=IMAGE):
+    x = np.random.RandomState(seed).rand(B, size, size, 3).astype(np.float32)
+    x[0, 0, :4] = [[-0.2, 0.5, 1.3]] * 4  # out of the box: the clamp matters
+    return x
+
+
+def test_resnet50_matches_jax():
+    x = np.random.RandomState(1).randn(B, IMAGE, IMAGE, 3).astype(np.float32)
+    jclf = JaxResNet50(n_classes=2)
+    variables = random_variables(jax.eval_shape(
+        lambda: jclf.init(KEY, jnp.asarray(x), train=False)), 2)
+    want = jclf.apply(variables, jnp.asarray(x), train=False)
+    port = load_port(ResNet50(2, device="cpu"), variables)
+    with torch.no_grad():
+        got = port(to_nchw(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **CLF_TOL)
+
+
+@pytest.fixture(scope="module")
+def models():
+    """JAX and port PSP(32) + a one-block-per-stage ResNet, same weights."""
+    jpsp = JaxPSP(stylegan_size=SIZE)
+    psp_vars = random_variables(jax.eval_shape(
+        lambda: jpsp.init(KEY, jnp.zeros((1, IMAGE, IMAGE, 3)), method=JaxPSP.init_all)), 3)
+    jclf = JaxResNet(n_classes=2, layers=SMALL_LAYERS)
+    clf_vars = random_variables(jax.eval_shape(
+        lambda: jclf.init(KEY, jnp.zeros((1, 256, 256, 3)), train=False)), 4)
+    return dict(jpsp=jpsp, psp_vars=psp_vars, jclf=jclf, clf_vars=clf_vars,
+                tpsp=load_port(PSP(SIZE, device="cpu"), psp_vars),
+                tclf=load_port(ResNetBackbone(2, layers=SMALL_LAYERS, device="cpu"), clf_vars),
+                alphas=gender_alphas(8))
+
+
+@pytest.mark.parametrize("noise_eps,chunk", [(4.0, None), (0.0, None), (4.0, 2)])
+def test_gender_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
+    """MLVGMDefense + the E4E split + eot_wrap, EoT 4, normalize_before_purify.
+    JAX draws inside a vmap over keys, so its jax.random.normal looks the
+    draw's key up in a table of the numpy draws; the port replays the same
+    draws folded into its batch, draw-major (the mix noise (n_codes, B, 512)
+    on its batch axis 1), chunk by chunk."""
+    eot, n_codes = 4, 8
+    x = _images(5)
+    rng = np.random.RandomState(6)
+    noise = [rng.standard_normal((B, IMAGE, IMAGE, 3)).astype(np.float32) for _ in range(eot)]
+    mix = [rng.standard_normal((n_codes, B, 512)).astype(np.float32) for _ in range(eot)]
+    key = jax.random.PRNGKey(7)
+
+    tables = {}
+    for d, kd in enumerate(jax.random.split(key, eot)):
+        k_noise, k_purify = jax.random.split(kd)
+        for k, v in ((k_noise, noise[d]), (k_purify, mix[d])):
+            keys, vals = tables.setdefault(v.shape, ([], []))
+            keys.append(np.asarray(k))
+            vals.append(v)
+    tables = {s: (jnp.asarray(np.stack(k)), jnp.asarray(np.stack(v)))
+              for s, (k, v) in tables.items()}
+    real_normal = jax.random.normal
+
+    def fake_normal(k, shape=(), dtype=jnp.float32):
+        if tuple(shape) not in tables:
+            # flax checks a parameter's shape by evaluating its init (the
+            # StyleGAN inits draw normals); that is no draw of the defense
+            return real_normal(k, shape, dtype)
+        keys, vals = tables[tuple(shape)]
+        match = jnp.all(keys == k, axis=-1)
+        # a key that is not in the table gives NaN, and the test fails
+        return jnp.where(jnp.any(match), vals[jnp.argmax(match)], jnp.nan).astype(dtype)
+
+    enc, dec = jax_split(models["jpsp"])
+    jdef = JaxDefense(
+        purify_variables=models["psp_vars"], classifier_variables=models["clf_vars"],
+        alphas=jnp.asarray(models["alphas"]), purify_apply=_compose(enc, dec),
+        purify_encode_apply=enc, purify_decode_apply=dec,
+        classifier_apply=jax_classifier_apply(models["jclf"]), image_size=IMAGE,
+        initial_noise_eps=noise_eps, normalize_before_purify=True)
+    monkeypatch.setattr(jax.random, "normal", fake_normal)
+    want = jax_eot_wrap(jdef, eot_steps=eot, chunk=chunk)(key, jnp.asarray(x))
+    monkeypatch.setattr(jax.random, "normal", real_normal)
+
+    per = chunk or eot
+    draws = []
+    for c0 in range(0, eot, per):
+        ds = range(c0, c0 + per)
+        if noise_eps > 0:
+            draws.append(np.concatenate([noise[d] for d in ds]))
+        draws.append(np.concatenate([mix[d] for d in ds], axis=1))
+    tenc, tdec = make_e4e_purify_split(models["tpsp"])
+    tdef = MLVGMDefense(
+        models["tpsp"], models["tclf"], torch.tensor(models["alphas"]), tenc, tdec,
+        make_classifier_apply(models["tclf"]), initial_noise_eps=noise_eps,
+        normalize_before_purify=True)
+    with torch.no_grad():
+        got = eot_wrap(tdef, eot_steps=eot, chunk=chunk)(
+            torch.tensor(x), [torch.tensor(d) for d in draws])
+    assert np.all(np.isfinite(np.asarray(want)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DEFENSE_TOL)
+
+
+def test_gender_alphas_match_the_config():
+    cfg = DefenseConfig.from_yaml(REPO / "configs" / "ours_cosine_noise_gender.yaml")
+    np.testing.assert_array_equal(
+        gender_alphas(), np.asarray(cfg.interpolation_alphas, np.float32)
+        * np.float32(cfg.alpha_attenuation))
+    assert len(GENDER_ALPHAS) == 18
+    assert cfg.initial_noise_eps == 4.0 and not cfg.gaussian_blur_input
+
+
+def test_gender_rehearsal_at_reduced_size():
+    """The factory on the CPU at a 32-px generator and a one-block-per-stage
+    ResNet: EoT-2 logits (2, 2), finite; a CPU tensor launches no kernel."""
+    defense = gender_defense(device="cpu", stylegan_size=SIZE, classifier_layers=SMALL_LAYERS)
+    assert defense.normalize_before_purify and defense.initial_noise_eps == 4.0
+    x = torch.rand(B, IMAGE, IMAGE, 3, generator=torch.Generator().manual_seed(0))
+    before = k2.launches
+    with torch.no_grad():
+        logits = eot_wrap(defense, eot_steps=2)(x, torch.Generator().manual_seed(1))
+    assert k2.launches == before
+    assert logits.shape == (B, 2)
+    assert torch.isfinite(logits).all()

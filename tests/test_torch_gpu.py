@@ -15,9 +15,12 @@ from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.flagship import flagship
 from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
 from gen_adversarial_tpu_torch.ops import depthwise as k1
+from gen_adversarial_tpu_torch.ops import upfirdn as k2
 
 # float32 kernel vs plain: 25 products summed in another order
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
+# float32 blur vs plain: at most 16 products, summed in the same order
+K2_TOL = dict(rtol=1e-5, atol=1e-5)
 # a whole small defense, GPU vs CPU: ~30 float32 layers in other orders
 DEFENSE_TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -105,3 +108,68 @@ def test_small_defense_on_gpu_matches_cpu():
         got = eot_wrap(gpu, eot)(x.cuda(), draws).cpu()
     assert k1.launches - before == len(cfg.decoder_segment_shapes())
     torch.testing.assert_close(got, want, **DEFENSE_TOL)
+
+
+def _channels_last(shape, gen):
+    return torch.randn(*shape, device="cuda", generator=gen).contiguous(
+        memory_format=torch.channels_last)
+
+
+@pytest.mark.gpu
+def test_cuda_blur_matches_plain_version():
+    """K2 against its plain version: the generator's up-conv blur at a
+    narrow and a wide width, ragged sizes and channel counts, 3 taps, other
+    pads, and asymmetric taps (a missing flip shows there)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    up = (0.25, 0.75, 0.75, 0.25)
+    for shape, taps, pad in [((4, 512, 17, 17), up, (1, 1)),
+                             ((2, 32, 65, 65), up, (1, 1)),
+                             ((3, 40, 13, 29), (0.1, 0.2, 0.3, 0.4), (2, 1)),
+                             ((1, 3, 8, 8), (0.25, 0.5, 0.25), (2, 2)),
+                             ((2, 96, 19, 7), (1 / 7, 2 / 7, 4 / 7), (1, 1))]:
+        x = _channels_last(shape, gen)
+        before = k2.launches
+        got = k2.upfirdn_blur(x, taps, pad)
+        torch.cuda.synchronize()
+        assert k2.launches == before + 1
+        torch.testing.assert_close(got, k2.blur_plain(x, taps, pad), **K2_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_blur_backward_matches_plain_autograd():
+    """The backward launches the same kernel (flipped taps, transposed
+    pads); it agrees with autograd through the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for taps, pad in [((0.1, 0.2, 0.3, 0.4), (1, 1)), ((0.1, 0.2, 0.3, 0.4), (2, 1)),
+                      ((1 / 7, 2 / 7, 4 / 7), (2, 2))]:
+        x = _channels_last((2, 64, 21, 18), gen)
+        out = k2.out_size(21, len(taps), pad), k2.out_size(18, len(taps), pad)
+        g = _channels_last((2, 64, *out), gen)
+        xk = x.clone().requires_grad_()
+        before = k2.launches
+        k2.upfirdn_blur(xk, taps, pad).backward(g)
+        assert k2.launches == before + 2
+        xp = x.clone().requires_grad_()
+        k2.blur_plain(xp, taps, pad).backward(g)
+        torch.testing.assert_close(xk.grad, xp.grad, **K2_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_blur_past_2_to_the_31_elements():
+    """The 1024-px site of the gender call: x (64, 32, 1025, 1025) holds
+    2.15e9 elements, past what a 32-bit offset addresses. The first and the
+    last images (offsets past 2**31) against the plain version."""
+    _need_card()
+    shape = (64, 32, 1025, 1025)
+    need = 2 * 4 * 64 * 32 * 1025 * 1025 + 2 * 4 * 4 * 32 * 1025 * 1025
+    if torch.cuda.mem_get_info()[0] < need * 1.2:
+        pytest.skip(f"needs {need / 2**30:.1f} GiB of free device memory")
+    x = _channels_last(shape, torch.Generator(device="cuda").manual_seed(3))
+    assert x.numel() > 2 ** 31 - 1
+    taps, pad = (0.25, 0.75, 0.75, 0.25), (1, 1)
+    got = k2.upfirdn_blur(x, taps, pad)
+    torch.cuda.synchronize()
+    for part in (slice(0, 2), slice(62, 64)):
+        torch.testing.assert_close(got[part], k2.blur_plain(x[part], taps, pad), **K2_TOL)

@@ -205,6 +205,21 @@ def _port_files():
     return sorted((REPO / "gen_adversarial_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+SLICE_MODULES = [  # the modules of each port slice, which the checks below cover
+    "ops/depthwise.py", "models/nvae/model.py", "flagship.py",
+    "ops/upfirdn2d.py", "ops/fused_act.py", "ops/upfirdn.py", "ops/image.py",
+    "models/stylegan2/layers.py", "models/stylegan2/generator.py",
+    "models/e4e/encoder.py", "models/e4e/psp.py", "defenses/purify.py",
+    "defenses/base.py", "models/classifiers.py", "core/convert.py", "gender.py",
+]
+
+
+def test_import_checks_cover_every_slice_module():
+    files = set(_port_files())
+    for rel in SLICE_MODULES:
+        assert REPO / "gen_adversarial_tpu_torch" / rel in files, rel
+
+
 def test_port_sources_import_no_jax():
     """Every import statement of the port and chip_smoke.py, also those inside
     functions, and no use of torch.utils.cpp_extension."""

@@ -1,0 +1,99 @@
+"""The port's upfirdn2d and the K2 blur wrapper (ops/upfirdn.py) against the
+JAX package on the CPU: the blur's plain version against the TPU kernel's
+own semantics (`pallas_blur` in interpret mode, run as
+tests/test_pallas_upfirdn.py runs it) and against JAX `upfirdn2d`; its
+x-gradient through the port's autograd path against `jax.grad` of
+`pallas_blur_diff`; and upfirdn2d with up/down sampling. Asymmetric taps are
+used beside the binomial ones, whose symmetry would hide a missing flip.
+Inputs come from a numpy seed; the port is NCHW, JAX NHWC.
+
+Tolerance: 1e-6 absolute and relative, as in the JAX test: at most 16
+float32 products of O(1) values, summed in the same order."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gen_adversarial_tpu.ops.pallas_upfirdn import pallas_blur, pallas_blur_diff
+from gen_adversarial_tpu.ops.upfirdn2d import make_fir_kernel as jax_make_fir_kernel
+from gen_adversarial_tpu.ops.upfirdn2d import upfirdn2d as jax_upfirdn2d
+from gen_adversarial_tpu_torch.ops import upfirdn as k2
+from gen_adversarial_tpu_torch.ops.upfirdn2d import make_fir_kernel, upfirdn2d
+from tests.torch_port_helpers import to_nchw, to_nhwc
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+BINOMIAL4 = np.array([1.0, 3.0, 3.0, 1.0]) / 8.0
+ASYM4 = np.array([1.0, 2.0, 3.0, 4.0]) / 10.0
+BINOMIAL3 = np.array([1.0, 2.0, 1.0]) / 4.0
+ASYM3 = np.array([1.0, 2.0, 4.0]) / 7.0
+
+
+def _x(shape, seed=0):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,taps,pad", [
+    ((2, 9, 9, 32), BINOMIAL4, (1, 1)),    # the generator's up-conv blur
+    ((2, 9, 9, 32), ASYM4, (1, 1)),
+    ((1, 13, 7, 96), ASYM4, (2, 1)),       # ragged H != W, C not a lane multiple
+    ((1, 12, 10, 3), BINOMIAL4, (2, 2)),   # RGB width
+    ((2, 11, 6, 32), ASYM3, (2, 2)),
+    ((1, 8, 8, 3), BINOMIAL3, (1, 1)),
+    ((1, 7, 9, 96), ASYM3, (2, 1)),
+])
+def test_blur_plain_matches_pallas_and_upfirdn2d(shape, taps, pad):
+    x = _x(shape)
+    k = jnp.asarray(taps.astype(np.float32))
+    want_pallas = pallas_blur(jnp.asarray(x), k, pad=pad, interpret=True)
+    want_xla = jax_upfirdn2d(jnp.asarray(x), k, up=1, down=1, pad=pad)
+    tx = to_nchw(x)
+    before = k2.launches
+    got = k2.upfirdn_blur(tx, taps.astype(np.float32), pad)
+    assert k2.launches == before  # a CPU tensor takes the plain version
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want_pallas), **TOL)
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want_xla), **TOL)
+    np.testing.assert_array_equal(to_nhwc(got), to_nhwc(k2.blur_plain(tx, taps, pad)))
+
+
+@pytest.mark.parametrize("taps,pad", [(ASYM4, (1, 1)), (ASYM4, (2, 1)), (BINOMIAL4, (2, 2)),
+                                      (ASYM3, (1, 1))])
+def test_blur_x_gradient_matches_pallas_blur_diff(taps, pad):
+    """d/dx sum(sin(blur(x))): the port's autograd backward (the transposed
+    blur) against jax.grad through the Pallas kernel's custom VJP."""
+    x = _x((2, 10, 7, 8), seed=2)
+    k = jnp.asarray(taps.astype(np.float32))
+    want = jax.grad(lambda v: jnp.sum(jnp.sin(pallas_blur_diff(v, k, pad, True))))(
+        jnp.asarray(x))
+    tx = to_nchw(x).requires_grad_()
+    torch.sin(k2.upfirdn_blur(tx, taps.astype(np.float32), pad)).sum().backward()
+    np.testing.assert_allclose(to_nhwc(tx.grad), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("up,down,pad,kernel_2d", [
+    (2, 1, (2, 1), False),   # ToRGB's skip upsample
+    (2, 1, (2, 1), True),
+    (1, 2, (1, 1), False),   # the downsample blur
+    (1, 2, (1, 1), True),
+    (2, 2, (0, -1), False),  # a negative pad crops
+])
+def test_upfirdn2d_matches_jax(up, down, pad, kernel_2d):
+    x = _x((2, 7, 9, 5), seed=3)
+    taps = ASYM4.astype(np.float32)
+    kernel = np.outer(taps, BINOMIAL4).astype(np.float32) if kernel_2d else taps
+    want = jax_upfirdn2d(jnp.asarray(x), jnp.asarray(kernel), up=up, down=down, pad=pad)
+    got = upfirdn2d(to_nchw(x), torch.tensor(kernel), up=up, down=down, pad=pad)
+    assert to_nhwc(got).shape == want.shape
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), **TOL)
+
+
+def test_make_fir_kernel_matches_jax():
+    for k in ([1, 3, 3, 1], [1, 2, 3, 4], [[1, 2], [3, 4]]):
+        np.testing.assert_allclose(make_fir_kernel(k).numpy(),
+                                   np.asarray(jax_make_fir_kernel(k)), **TOL)
+
+
+def test_blur_wrapper_rejects_empty_output():
+    with pytest.raises(ValueError, match="no output"):
+        k2.upfirdn_blur(torch.zeros(1, 2, 2, 2), BINOMIAL4, (0, 0))

@@ -15,14 +15,25 @@ def random_variables(variables, seed: int):
     scales that keep a deep eval-mode network finite and its BatchNorms
     non-trivial: kernels N(0, 1/fan_in), biases N(0, 0.05^2), BN scales
     1 + N(0, 0.1^2), running means N(0, 0.2^2), running variances U(0.5, 1.5),
-    the NVAE's constant prior U(0, 1)."""
+    the NVAE's constant prior U(0, 1).
+
+    StyleGAN2 leaves at the scales of their own inits: equalized `weight`
+    leaves are stored at unit variance and scaled at call time, so N(0, 1)
+    (which also makes every NoiseInjection weight non-zero); the style MLP's
+    (`style_<i>/weight` of the generator) divided by its lr_mul 0.01, so
+    N(0, 100^2); the constant input and the fixed `noise_<i>` maps N(0, 1)."""
     rng = np.random.RandomState(seed)
     flat, treedef = jax.tree_util.tree_flatten_with_path(variables)
     out = []
     for path, leaf in flat:
-        name = str(getattr(path[-1], "key", path[-1]))
+        names = [str(getattr(k, "key", k)) for k in path]
+        name = names[-1]
         shape = tuple(leaf.shape)
-        if name == "kernel":
+        if name == "weight" and len(names) > 1 and names[-2].startswith("style_"):
+            v = rng.randn(*shape) / 0.01
+        elif name == "weight" or name == "const_input" or name.startswith("noise_"):
+            v = rng.randn(*shape)
+        elif name == "kernel":
             fan_in = int(np.prod(shape[:-1]))
             v = rng.randn(*shape) / np.sqrt(fan_in)
         elif name == "scale":
