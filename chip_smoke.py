@@ -16,7 +16,11 @@ gives it and drives the path, float32, random weights from a seed:
   (csrc/upfirdn_blur.cu).
 
 Each path is then rehearsed small on the GPU and on the CPU with the same
-weights and draws. Every phase prints one JSON line with its elapsed seconds;
+weights and draws. Phase `grad` takes input gradients the way the attacks
+will (torch.func.vjp, then vmap over the one-hot class cotangents) through
+both small defenses on the GPU and the CPU, and one input gradient of the
+full ids flagship, timed, with its peak memory. Every phase prints one JSON
+line with its elapsed seconds;
 the second-to-last line summarises the kernels, and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
 (the build included), ends the run with a non-zero exit code and no last
@@ -37,12 +41,16 @@ BUDGET_S = 300.0
 BATCH = 4
 EOT_STEPS = 32
 TIMED_CALLS = 3
+GRAD_CALLS = 2  # timed input-gradient calls of the full flagship, after a warm-up
 KERNEL_REPS = 20
 # float32 kernel vs plain: both sum 25 products in float32 in another order
 K1_TOL = 1e-5
 # whole defense on the GPU vs on the CPU: ~50 layers of float32 convolutions
 # in other summation orders
 PARITY_RTOL = 1e-4
+# the small gender defense's input gradient, GPU float32 vs CPU float64: at
+# most this many times as far as the CPU's float32 gradient (phase `grad`)
+GENDER_GAP_FACTOR = 1.2
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -100,6 +108,7 @@ def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)
 
     import torch.nn.functional as F
+    from torch.func import vjp, vmap
     from gen_adversarial_tpu_torch.core import cuda_build
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, flagship
@@ -223,10 +232,10 @@ def main() -> int:
     flag = run_phase("flagship", flagship_phase)
     torch.cuda.empty_cache()  # the flagship's weights went with its phase
 
-    def parity_phase():
+    def small_ids():
+        """A small ids defense on the CPU and the same weights on the GPU,
+        with EoT-4 draws and images from a numpy seed."""
         import numpy as np
-        # a small defense on the GPU (kernel path) against the same weights
-        # and draws on the CPU (plain path)
         cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2,
                          num_groups_per_scale=2, is_adaptive=False,
                          num_cells_per_group=1, num_latent_per_group=4, num_mixtures=3)
@@ -240,17 +249,23 @@ def main() -> int:
         x = torch.tensor(rng.rand(b, 32, 32, 3).astype(np.float32))
         shapes = [(eot * b, 32, 32, 3)] + eps_shapes(cfg, eot * b)
         draws = [torch.tensor(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+        return cpu, gpu, x, draws, eot, len(cfg.decoder_segment_shapes())
+
+    def parity_phase():
+        # a small defense on the GPU (kernel path) against the same weights
+        # and draws on the CPU (plain path)
+        cpu, gpu, x, draws, eot, segments = small_ids()
         before = k1.launches
         with torch.no_grad():
             want = eot_wrap(cpu, eot)(x, draws)
             got = eot_wrap(gpu, eot)(x.to(dev), draws).cpu()
-        if k1.launches - before != len(cfg.decoder_segment_shapes()):
+        if k1.launches - before != segments:
             raise RuntimeError("the GPU defense did not go through K1")
         err = (got - want).abs().max().item()
         tol = PARITY_RTOL * max(1.0, want.abs().max().item())
         if not math.isfinite(err) or err > tol:
             raise RuntimeError(f"GPU defense disagrees with the CPU one: {err} > {tol}")
-        return {"eot_steps": eot, "batch": b, "max_abs_err": err, "tol": tol}
+        return {"eot_steps": eot, "batch": x.shape[0], "max_abs_err": err, "tol": tol}
 
     run_phase("parity", parity_phase)
     torch.cuda.empty_cache()
@@ -366,11 +381,11 @@ def main() -> int:
     gender = run_phase("gender", gender_phase)
     torch.cuda.empty_cache()  # the gender weights went with its phase
 
-    def gender_parity_phase():
+    def small_gender():
+        """A small gender defense (32-px generator, full-width encoder, one
+        ResNet block per stage) on the CPU and the same weights on the GPU,
+        with EoT-4 draws and 64-px images from a numpy seed."""
         import numpy as np
-        # a small gender defense (32-px generator, full-width encoder, one
-        # ResNet block per stage) on the GPU (kernel path) against the same
-        # weights and draws on the CPU (plain path)
         size, eot, b, image, n_codes = 32, 4, 2, 64, 8
         kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1))
         cpu = gender_defense(device="cpu", **kw)
@@ -380,6 +395,12 @@ def main() -> int:
         x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
         draws = [torch.tensor(rng.standard_normal(s).astype(np.float32))
                  for s in [(eot * b, image, image, 3), (n_codes, eot * b, 512)]]
+        return cpu, gpu, x, draws, eot, size
+
+    def gender_parity_phase():
+        # the small gender defense on the GPU (kernel path) against the same
+        # weights and draws on the CPU (plain path)
+        cpu, gpu, x, draws, eot, size = small_gender()
         before = k2.launches
         with torch.no_grad():
             want = eot_wrap(cpu, eot)(x, draws)
@@ -391,10 +412,98 @@ def main() -> int:
         tol = PARITY_RTOL * max(1.0, want.abs().max().item())
         if not math.isfinite(err) or err > tol:
             raise RuntimeError(f"GPU gender defense disagrees with the CPU one: {err} > {tol}")
-        return {"stylegan_size": size, "eot_steps": eot, "batch": b, "k2_launches": launched,
-                "max_abs_err": err, "tol": tol}
+        return {"stylegan_size": size, "eot_steps": eot, "batch": x.shape[0],
+                "k2_launches": launched, "max_abs_err": err, "tol": tol}
 
     run_phase("gender_parity", gender_parity_phase)
+    torch.cuda.empty_cache()
+
+    def class_grads(net, x, draws):
+        """The input gradient of every class logit (summed over the batch):
+        torch.func.vjp, then vmap of its vjp_fn over the one-hot class
+        cotangents, as the JAX attacks' class_grads does
+        (gen_adversarial_tpu/attacks/utils.py). (K, B, H, W, 3)."""
+        logits, vjp_fn = vjp(lambda v: net(v, draws), x)
+        k = logits.shape[-1]
+        onehots = torch.eye(k, device=x.device)[:, None, :].expand(k, x.shape[0], k)
+        (grads,) = vmap(vjp_fn)(onehots)
+        return grads.detach()
+
+    def rel_err(got, want):
+        return ((got.double() - want.double()).abs().max()
+                / want.double().abs().max()).item()
+
+    def grad_phase():
+        out = {}
+        reset_counts()  # counts from here on are this path's
+        # the small ids defense: GPU (K1 forward, plain backward) vs CPU
+        cpu, gpu, x, draws, eot, _ = small_ids()
+        want = class_grads(eot_wrap(cpu, eot), x, draws)
+        got = class_grads(eot_wrap(gpu, eot), x.to(dev), draws).cpu()
+        err = rel_err(got, want)
+        if not math.isfinite(err) or err > PARITY_RTOL:
+            raise RuntimeError(f"ids input gradients, GPU vs CPU: {err} > {PARITY_RTOL}")
+        out["ids"] = {"classes": want.shape[0], "eot_steps": eot, "rel_err": err,
+                      "tol": PARITY_RTOL, "k1_launches": k1.launches}
+        # the small gender defense: GPU (K2 forward and backward) vs CPU. With
+        # random weights its input gradient is ill-conditioned in float32 (the
+        # logits agree to 1e-7, the gradient to ~1e-3), so it is held against
+        # the CPU's float64 result: the GPU's float32 gradient may be no
+        # farther from it than GENDER_GAP_FACTOR x the CPU's float32 one is
+        cpu, gpu, x, draws, eot, _ = small_gender()
+        before = k2.launches
+        want = class_grads(eot_wrap(cpu, eot), x, draws)
+        got = class_grads(eot_wrap(gpu, eot), x.to(dev), draws).cpu()
+        k2_gender = k2.launches - before
+        want64 = class_grads(eot_wrap(cpu.double(), eot), x.double(),
+                             [d.double() for d in draws])
+        gap = rel_err(want, want64)
+        tol = max(PARITY_RTOL, GENDER_GAP_FACTOR * gap)
+        err = rel_err(got, want64)
+        if not math.isfinite(err) or err > tol:
+            raise RuntimeError(f"gender input gradients, GPU float32 vs CPU float64: {err} > "
+                               f"{GENDER_GAP_FACTOR} x the CPU float32 one's {gap}")
+        out["gender"] = {"classes": want.shape[0], "eot_steps": eot,
+                         "gpu_f32_vs_cpu_f64": err, "cpu_f32_vs_cpu_f64": gap, "tol": tol,
+                         "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": k2_gender}
+        del cpu, gpu
+        torch.cuda.empty_cache()
+        # one input gradient of the full flagship (batch 4, EoT-32): what the
+        # attack slice will size itself by; only finiteness gates it
+        defense = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+        net = eot_wrap(defense, eot_steps=EOT_STEPS)
+        images = torch.rand(BATCH, 64, 64, 3, device=dev, generator=gen)
+        cotangent = torch.randn(BATCH, 100, device=dev, generator=gen)
+
+        def input_grad():
+            draws = torch.Generator(device=dev).manual_seed(1)
+            _, vjp_fn = vjp(lambda v: net(v, draws), images)
+            return vjp_fn(cotangent)[0]
+
+        input_grad()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = k1.launches
+        times = []
+        for _ in range(GRAD_CALLS):
+            t = time.monotonic()
+            grad = input_grad()
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t)
+        if tuple(grad.shape) != (BATCH, 64, 64, 3) or not torch.isfinite(grad).all():
+            raise RuntimeError(f"flagship input gradient: shape {tuple(grad.shape)}, "
+                               f"finite {bool(torch.isfinite(grad).all())}")
+        out["flagship"] = {"batch": BATCH, "eot_steps": EOT_STEPS, "initial_noise_eps": 2.0,
+                           "call_s": times, "finite": True,
+                           "k1_launches": k1.launches - before,
+                           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+        if k1.launches == 0 or k2.launches == 0:
+            raise RuntimeError(f"the gradient path launched K1 {k1.launches} and K2 "
+                               f"{k2.launches} times")
+        out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+        return out
+
+    run_phase("grad", grad_phase)
 
     def mean_call_s(phase):
         return sum(phase["call_s"][1:]) / TIMED_CALLS

@@ -1,98 +1,236 @@
 // Fused decoder-cell segment of the NVAE:
 //     y = silu(DW5x5(silu(x * s0 + b0)) * s1 + b1)
-// on channels-last (NHWC) tensors, one read of x and one write of y.
+// on channels-last (NHWC) float32 tensors, one read of x and one write of y.
 //
 // Replaces the Pallas TPU kernel gen_adversarial_tpu/ops/pallas_depthwise.py
 // (`_kernel`, launched by `_segment_call`). Same math: XLA correlation
 // convention (no tap flip), zero "SAME" padding of 2 applied AFTER the first
-// SiLU, float32 arithmetic inside, the model dtype at the edges.
+// SiLU, float32 arithmetic inside and at the edges.
 //
-// What bounds it on an H100: memory. Per output element it reads one input
-// and writes one output (8 bytes in float32) and does about 62 floating-point
-// operations (25 fused multiply-adds, two affines, two SiLUs), far below the
-// ~20 FLOP/byte where float32 arithmetic would be the limit. The design keeps
-// the intermediate silu(x*s0+b0) out of device memory: a block stages its
-// input tile plus a 2-pixel halo in shared memory, applying the first affine
-// and SiLU once per staged element, so device memory sees x once (plus the
-// halo re-read, which mostly hits L2) and y once. The SiLUs' exponentials and
-// reciprocals (3.25 per output with the halo) load the special-function
-// units about as much as the bytes load the memory; overlapping the two is
-// what the double buffering below is for.
+// What bounds it on an H100: instruction issue, before memory. Per output it
+// moves 8 bytes (one read of x, one write of y): 4.03 ms for the 1.686e9
+// outputs of a flagship decode at 3.35 TB/s. Its arithmetic floor is the 25
+// FMAs of the depthwise, but what a thread issues around them decides the
+// time. The first design (per-element `cp.async` staging of an 8x8 tile with
+// a bounds-checked offset per element, accurate SiLUs with their slow-path
+// calls, 1.72 first SiLUs an output from the 12x12 halo) issues about 150
+// SASS instructions an output (its loop over one image: about 1,460 a thread
+// for 8 outputs), which at the card's peak issue rate alone is longer than
+// the byte bound. This design issues about 54 an output on 16x16 tiles (1,715
+// a thread for 32 outputs: 567 for the activation pass, 1,036 for the
+// depthwise, 112 for the epilogue) and 66 on the 8x8 map, through three
+// changes:
 //
-// Layout of the work: a block owns one 8x8 spatial tile and one 32-channel
-// tile of 4 consecutive images, and walks over the images with two shared
-// memory buffers: while it computes image n, `cp.async` copies image n+1's
-// tile (plus halo) into the other buffer, so device memory stays busy during
-// the arithmetic. A warp covers 32 consecutive channels of one pixel, so
-// every copy and store is one coalesced 128-byte transaction and every
-// shared memory access is bank-conflict free. After a tile lands, each
-// thread applies silu(x*s0+b0) in place to the elements it copied (zeros
-// outside the image), then warp `col` computes output column `col`, sliding
-// down it so a staged value is read once per tap column; each thread keeps
-// its channel's 25 taps and the column's 8 partial sums in registers and
-// sums in float32. Widths that are not multiples of 32 and images that are
-// not multiples of 8 are masked at the edges.
+// 1. Staging by TMA. The host encodes a 4-D tensor map over x, dims
+//    (C, W, H, N) innermost first, box (32 channels, T+4, T+4, 1). One
+//    thread issues `cp.async.bulk.tensor` for a tile plus its 2-pixel halo
+//    at signed start (w0-2, h0-2) and arms the stage's mbarrier with the
+//    byte count; the hardware computes every address and fills what lies
+//    outside the tensor with zeros. No thread spends an instruction on a
+//    copy address or a bounds check. A ring of stages walks the block's
+//    images, so the next image's load is in flight while this one is
+//    computed. The TMA's zero fill pads x, not silu(x*s0+b0): the
+//    activation pass keeps the zeros at pixels outside the image by a test
+//    of coordinates that is uniform across a warp (a warp holds one pixel's
+//    32 channels) and a select, with no branch. The outputs leave the same
+//    way: written into the stage's interior, stored by one thread as T
+//    row boxes of a second tensor map over y, which drops what falls
+//    outside y (ragged channels, columns and rows need no mask).
+// 2. A cheaper SiLU: v / (1 + exp(-v)) as the special-function unit's exp2
+//    and reciprocal (`ex2.approx.ftz`, `rcp.approx.ftz`): five instructions.
+//    That is __fdividef(v, 1 + __expf(-v)) without those intrinsics' range
+//    fix-ups. In this file only: the build's flags stay free of
+//    --use_fast_math, which would also change K2.
+// 3. Larger spatial tiles, a template parameter picked by the launcher: the
+//    whole 8x8 map at H = 8, 16x16 tiles above. At the flagship's shapes the
+//    first SiLU runs 1.18 times an output instead of 1.72, and the halo bytes
+//    a tile re-reads fall with it.
+//
+// Layout of the work: a block owns one TxT spatial tile and one 32-channel
+// tile of a few consecutive images. Warp `w` computes output columns
+// w*kCols .. w*kCols+kCols-1 of the tile, sliding down them so a staged row
+// of kCols+4 values is read once for all its taps; each thread keeps its
+// channel's 25 taps and the columns' T partial sums in registers and sums in
+// float32, taps in the order dy, dx. Every shared-memory access of a warp is
+// one 128-byte row (bank-conflict free). Per image: wait on the stage's
+// mbarrier, activate the stage in place, barrier, depthwise, barrier,
+// second affine + SiLU into the stage, proxy fence and barrier, then one
+// thread issues the row stores, waits until they have read the stage and
+// refills it with the image `kStages` ahead.
+//
+// Channel width: a TMA row pitch (C x 4 bytes) must be a multiple of 16, so
+// C must be a multiple of 4, and x and y 16-byte aligned. Every NVAE width
+// qualifies; the wrapper (ops/depthwise.py) refuses other widths on a CUDA
+// tensor rather than keep a second staging path.
+//
+// Sizes: no thread computes a global address. The TMA takes one 32-bit
+// coordinate a dimension and 64-bit strides, and the tensor maps' encoder
+// refuses what it cannot map (kErrEncode).
+//
+// kStages, kCols and kImages were chosen by an A/B on the card at the
+// flagship's seven shapes, each variant an edited copy of this file timed
+// by gen_adversarial_tpu_torch/ab_k1.py (PERF.md): two columns a warp beat
+// one (a 64-register cap spills) and four (232 registers, 8 warps an SM);
+// two stages beat three (one block an SM); taps in shared memory lost to
+// registers by 60 %; the TMA store won 2.6 % over direct coalesced stores.
 //
 // Interface: plain C, loaded with ctypes (no PyTorch headers). The launcher
 // takes raw device pointers, the sizes, the device index and the CUDA stream,
 // launches asynchronously on that stream, allocates nothing, and returns
-// cudaGetLastError().
+// cudaGetLastError() (or a negative code of its own, see
+// gat_cuda_error_string). The tensor maps' encoder is taken from the CUDA
+// driver through the runtime's entry-point query, so the library needs no
+// -lcuda.
 
-#include <cuda_pipeline.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kTaps = 5;
 constexpr int kPad = 2;
-constexpr int kTile = 8;    // output rows and columns per block; one column per warp
 constexpr int kTileC = 32;  // one warp spans the channel tile
-constexpr int kHalo = kTile + 2 * kPad;
-constexpr int kHaloPix = kHalo * kHalo;
-constexpr int kStaged = kHaloPix / kTile;  // staged pixels per thread
-constexpr int kImagesPerBlock = 4;
-constexpr int kBlocksPerSM = 3;  // caps registers at 80 per thread
+// chosen by an A/B on the card (PERF.md)
+constexpr int kStages = 2;  // shared-memory stages in the ring
+constexpr int kCols = 2;    // output columns per warp
+constexpr int kImages = 4;  // images a block walks
+// resident threads an SM that __launch_bounds__ plans for (64 registers a
+// thread), unless shared memory admits fewer blocks (then more registers)
+constexpr int kThreadsPerSM = 1024;
 
-// silu(v) = v * sigmoid(v); the reciprocal is correctly rounded, cheaper
-// than a full IEEE division
-__device__ __forceinline__ float silu(float v) { return v * __frcp_rn(1.0f + expf(-v)); }
+constexpr int kMaxDevices = 64;
 
-// float32 at the edges. A bfloat16 instantiation copies the raw tile into a
-// bf16 buffer of the same shape and converts in the activation pass (where
-// silu(x*s0+b0) is written into a float buffer), then stores y with
-// __float2bfloat16; it needs one more extern "C" launcher.
-__global__ void __launch_bounds__(kTileC * kTile, kBlocksPerSM)
-segment_kernel(const float* __restrict__ x, const float* __restrict__ taps,
+constexpr int kErrNoEncoder = -1;  // cuTensorMapEncodeTiled not found
+constexpr int kErrEncode = -2;     // the tensor map was refused
+constexpr int kErrWidth = -3;      // C not a multiple of 4, or x or y not 16-byte aligned
+
+// silu(v) = v / (1 + exp(-v)), as __fdividef(v, 1 + __expf(-v)) computes it
+// (the special-function unit's exp2 and reciprocal) but without those
+// intrinsics' range fix-ups, which cost a compare and two predicated
+// multiplies each: five instructions. For v far below 0 the denominator
+// overflows to inf, its reciprocal is 0 and so is the result.
+__device__ __forceinline__ float silu(float v) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
+  return v * r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A load that never lands (a refused copy) traps after some seconds: a
+// launch failure the caller sees, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t tries = 0; !mbar_try_wait(bar, parity); ++tries) {
+    if (tries > (1u << 26)) __trap();
+  }
+}
+
+// box (32 channels, T+4 columns, T+4 rows, 1 image) at (c, w, h, n) into dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                         int w, int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+}
+
+// row oh of the output tile (32 channels, T columns) from shared memory to
+// (c, w, h, n) of y; the TMA drops what falls outside the tensor
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c, int w,
+                                          int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+}
+
+template <int T>
+struct Tile {
+  static constexpr int kHalo = T + 2 * kPad;
+  static constexpr int kHaloPix = kHalo * kHalo;
+  static constexpr int kWarps = T / kCols;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kStageFloats = kHaloPix * kTileC;
+  static constexpr uint32_t kStageBytes = kStageFloats * sizeof(float);
+  static constexpr size_t kSmemBytes = kStages * (kStageBytes + sizeof(uint64_t));
+  // resident blocks an SM: by threads, and by shared memory (228 KB an SM,
+  // 1 KB of it reserved per block)
+  static constexpr int kBlocksPerSM = (kThreadsPerSM / kThreads) < (233472 / (kSmemBytes + 1024))
+                                          ? (kThreadsPerSM / kThreads)
+                                          : (int)(233472 / (kSmemBytes + 1024));
+  static_assert(T % kCols == 0, "columns per warp must divide the tile");
+  static_assert(kWarps <= kHalo, "the activation pass steps one halo row at most");
+  static_assert(kStageBytes % 128 == 0, "each stage starts 128-byte aligned");
+  static_assert(kBlocksPerSM >= 1, "the stages do not fit in shared memory");
+};
+
+template <int T>
+__global__ void __launch_bounds__(Tile<T>::kThreads, Tile<T>::kBlocksPerSM)
+segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+               const float* __restrict__ taps,
                const float* __restrict__ s0, const float* __restrict__ b0,
                const float* __restrict__ s1, const float* __restrict__ b1,
-               float* __restrict__ y, int N, int H, int W, int C, int tiles_w) {
-  __shared__ float buf[2][kHaloPix][kTileC];
+               int N, int H, int W, int C, int tiles_w) {
+  using L = Tile<T>;
+  constexpr int kHalo = L::kHalo;
+  extern __shared__ __align__(128) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * L::kStageFloats);
 
-  const int lane = threadIdx.x;  // channel within the tile
-  const int col = threadIdx.y;   // output column within the tile
-  const int c = blockIdx.y * kTileC + lane;
+  const int lane = threadIdx.x & 31;  // channel within the tile
+  const int warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.y * kTileC;
+  const int c = c0 + lane;
   const bool c_ok = c < C;
-  const int h0 = (blockIdx.x / tiles_w) * kTile;
-  const int w0 = (blockIdx.x % tiles_w) * kTile;
-  const size_t image_elems = (size_t)H * W * C;
+  const int h0 = (blockIdx.x / tiles_w) * T;
+  const int w0 = (blockIdx.x % tiles_w) * T;
+  const int n_first = blockIdx.z * kImages;
+  const int count = min(N - n_first, kImages);
 
-  // offset of halo pixel p of this thread's channel in an image; -1 outside
-  auto offset = [&](int p) {
-    const int h = h0 - kPad + p / kHalo;
-    const int w = w0 - kPad + p % kHalo;
-    return (c_ok && h >= 0 && h < H && w >= 0 && w < W) ? (h * W + w) * C + c : -1;
+  // thread 0 only: image i of this block into stage i % kStages
+  auto issue = [&](int i) {
+    const int s = i % kStages;
+    mbar_expect_tx(&full[s], L::kStageBytes);
+    tma_load(smem + s * L::kStageFloats, &xmap, &full[s], c0, w0 - kPad, h0 - kPad, n_first + i);
   };
-  // each thread copies (and later activates) halo pixels col, col+8, ...
-  auto prefetch = [&](int n, int b) {
-    const float* xn = x + (size_t)n * image_elems;
-#pragma unroll
-    for (int i = 0; i < kStaged; ++i) {
-      const int p = col + i * kTile;
-      const int off = offset(p);
-      if (off >= 0) __pipeline_memcpy_async(&buf[b][p][lane], xn + off, sizeof(float));
-    }
-    __pipeline_commit();
-  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < min(count, kStages); ++i) issue(i);
+  }
 
   const float a0 = c_ok ? s0[c] : 0.0f, z0 = c_ok ? b0[c] : 0.0f;
   const float a1 = c_ok ? s1[c] : 0.0f, z1 = c_ok ? b1[c] : 0.0f;
@@ -100,68 +238,151 @@ segment_kernel(const float* __restrict__ x, const float* __restrict__ taps,
 #pragma unroll
   for (int i = 0; i < kTaps * kTaps; ++i) k[i] = c_ok ? taps[i * C + c] : 0.0f;
 
-  const int n_first = blockIdx.z * kImagesPerBlock;
-  const int n_end = min(N, n_first + kImagesPerBlock);
-  prefetch(n_first, 0);
-  for (int n = n_first, cur = 0; n < n_end; ++n, cur ^= 1) {
-    if (n + 1 < n_end) {
-      prefetch(n + 1, cur ^ 1);
-    } else {
-      __pipeline_commit();  // an empty group keeps the wait below uniform
-    }
-    __pipeline_wait_prior(1);  // this image's tile has landed
+  const int col0 = warp * kCols;  // this warp's first output column
+  const int rows = min(T, H - h0);  // output rows of this tile inside the image
+  for (int i = 0; i < count; ++i) {
+    const int s = i % kStages;
+    float* buf = smem + s * L::kStageFloats;
+    mbar_wait(&full[s], (i / kStages) & 1);
+
+    // the first affine and SiLU in place at the pixels inside the image;
+    // the TMA wrote zeros at those outside, which is the padding after the
+    // SiLU. Warp `warp` takes halo pixels warp, warp + kWarps, ... (row hr,
+    // column wc); the test is uniform across the warp
+    {
+      int hr = warp / kHalo, wc = warp % kHalo;
 #pragma unroll
-    for (int i = 0; i < kStaged; ++i) {
-      const int p = col + i * kTile;
-      float& v = buf[cur][p][lane];
-      v = offset(p) >= 0 ? silu(v * a0 + z0) : 0.0f;  // zero padding after the SiLU
+      for (int q = 0; q < (L::kHaloPix + L::kWarps - 1) / L::kWarps; ++q) {
+        const unsigned h = h0 - kPad + hr, w = w0 - kPad + wc;  // < 0 wraps high
+        if (L::kHaloPix % L::kWarps == 0 || q * L::kWarps + warp < L::kHaloPix) {
+          float& v = buf[(q * L::kWarps + warp) * kTileC + lane];
+          const float a = silu(fmaf(v, a0, z0));  // computed everywhere: no branch
+          v = (h < (unsigned)H && w < (unsigned)W) ? a : v;
+        }
+        wc += L::kWarps;
+        if (wc >= kHalo) {
+          wc -= kHalo;
+          ++hr;
+        }
+      }
     }
     __syncthreads();
 
-    const int w = w0 + col;
-    if (c_ok && w < W) {
-      // halo row r feeds output rows r-4 .. r with tap row r - oh; every
-      // output sums its taps in the order dy, dx
-      float acc[kTile];
+    // halo row r feeds output rows r-4 .. r with tap row r - oh
+    float acc[kCols][T];
 #pragma unroll
-      for (int oh = 0; oh < kTile; ++oh) acc[oh] = 0.0f;
+    for (int j = 0; j < kCols; ++j) {
 #pragma unroll
-      for (int r = 0; r < kHalo; ++r) {
-        float v[kTaps];
+      for (int oh = 0; oh < T; ++oh) acc[j][oh] = 0.0f;
+    }
 #pragma unroll
-        for (int dx = 0; dx < kTaps; ++dx) v[dx] = buf[cur][r * kHalo + col + dx][lane];
+    for (int r = 0; r < kHalo; ++r) {
+      float v[kCols + kTaps - 1];
 #pragma unroll
-        for (int dy = 0; dy < kTaps; ++dy) {
-          const int oh = r - dy;
-          if (oh >= 0 && oh < kTile) {
+      for (int j = 0; j < kCols + kTaps - 1; ++j) v[j] = buf[(r * kHalo + col0 + j) * kTileC + lane];
 #pragma unroll
-            for (int dx = 0; dx < kTaps; ++dx) acc[oh] = fmaf(v[dx], k[dy * kTaps + dx], acc[oh]);
+      for (int dy = 0; dy < kTaps; ++dy) {
+        const int oh = r - dy;
+        if (oh >= 0 && oh < T) {
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+            for (int dx = 0; dx < kTaps; ++dx)
+              acc[j][oh] = fmaf(v[j + dx], k[dy * kTaps + dx], acc[j][oh]);
           }
         }
       }
-      float* yn = y + (size_t)n * image_elems;
+    }
+    // every warp is done reading the stage: write the outputs into its
+    // interior (halo row oh + 2, column col + 2), then one thread stores
+    // them row by row; the TMA drops channels, columns and rows outside y
+    __syncthreads();
 #pragma unroll
-      for (int oh = 0; oh < kTile; ++oh) {
-        const int h = h0 + oh;
-        if (h < H) yn[(h * W + w) * C + c] = silu(acc[oh] * a1 + z1);
+    for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+      for (int oh = 0; oh < T; ++oh)
+        buf[((oh + kPad) * kHalo + col0 + j + kPad) * kTileC + lane] =
+            silu(fmaf(acc[j][oh], a1, z1));
+    }
+    // this thread's accesses of the stage, ordered before the TMA store that
+    // reads it and the TMA load that refills it (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int oh = 0; oh < rows; ++oh)
+        tma_store(&ymap, buf + ((oh + kPad) * kHalo + kPad) * kTileC, c0, w0, h0 + oh,
+                  n_first + i);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if (i + kStages < count) {
+        // the stores have read the stage before the TMA refills it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        issue(i + kStages);
       }
     }
-    __syncthreads();  // buf[cur] is refilled by the next iteration's prefetch
   }
+  // the last stores have read shared memory before the block exits
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-int launch_f32(const void* x, const void* taps, const void* s0, const void* b0,
-               const void* s1, const void* b1, void* y, int n, int h, int w, int c,
-               int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (w + kTile - 1) / kTile;
-  const int tiles_h = (h + kTile - 1) / kTile;
-  const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC,
-                  (n + kImagesPerBlock - 1) / kImagesPerBlock);
-  segment_kernel<<<grid, dim3(kTileC, kTile), 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)taps, (const float*)s0, (const float*)b0,
-      (const float*)s1, (const float*)b1, (float*)y, n, h, w, c, tiles_w);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+template <int T>
+int launch_tiled(const float* x, const float* taps, const float* s0, const float* b0,
+                 const float* s1, const float* b1, float* y, int n, int h, int w, int c,
+                 int device, cudaStream_t stream) {
+  using L = Tile<T>;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return kErrNoEncoder;
+  // (C, W, H, N) innermost first; boxes of 32 channels
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)w * c * 4,
+                                 (cuuint64_t)h * w * c * 4};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  auto make = [&](CUtensorMap* map, const float* base, cuuint32_t box_w, cuuint32_t box_h) {
+    const cuuint32_t box[4] = {kTileC, box_w, box_h, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
+                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  CUtensorMap xmap, ymap;  // x: a tile and its halo; y: one output row of a tile
+  if (!make(&xmap, x, L::kHalo, L::kHalo) || !make(&ymap, y, T, 1)) return kErrEncode;
+  // above 48 KB, dynamic shared memory needs the kernel's consent, once per
+  // device (a host call that is not free: not at every launch)
+  static bool consented[kMaxDevices] = {};
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!consented[device]) {
+    cudaError_t err = cudaFuncSetAttribute(segment_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)L::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    consented[device] = true;
+  }
+  const int tiles_w = (w + T - 1) / T;
+  const int tiles_h = (h + T - 1) / T;
+  const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, (n + kImages - 1) / kImages);
+  segment_kernel<T><<<grid, L::kThreads, L::kSmemBytes, stream>>>(xmap, ymap, taps, s0, b0, s1,
+                                                                   b1, n, h, w, c, tiles_w);
   return (int)cudaGetLastError();
 }
 
@@ -171,9 +392,26 @@ extern "C" int gat_depthwise_segment_f32(const void* x, const void* taps, const 
                                          const void* b0, const void* s1, const void* b1,
                                          void* y, int n, int h, int w, int c, int device,
                                          void* stream) {
-  return launch_f32(x, taps, s0, b0, s1, b1, y, n, h, w, c, device, stream);
+  if (c % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return kErrWidth;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto launch = (h <= 8 && w <= 8) ? launch_tiled<8> : launch_tiled<16>;
+  return launch((const float*)x, (const float*)taps, (const float*)s0, (const float*)b0,
+                (const float*)s1, (const float*)b1, (float*)y, n, h, w, c, device,
+                (cudaStream_t)stream);
 }
 
 extern "C" const char* gat_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  switch (code) {
+    case kErrNoEncoder:
+      return "the CUDA driver has no cuTensorMapEncodeTiled";
+    case kErrEncode:
+      return "cuTensorMapEncodeTiled refused the tensor map of x";
+    case kErrWidth:
+      return "the TMA needs C a multiple of 4 and x and y 16-byte aligned";
+    default:
+      return cudaGetErrorString((cudaError_t)code);
+  }
 }

@@ -3,25 +3,26 @@
 as a hand-written CUDA kernel for Hopper (`csrc/depthwise_segment.cu`).
 
 Replaces the Pallas TPU kernel of gen_adversarial_tpu/ops/pallas_depthwise.py
-(`depthwise_silu_segment`, body `_kernel`). What bounds it on an H100 is
-memory: per element one read of x and one write of y (8 bytes in float32)
-against about 62 floating-point operations, well under the card's float32
-balance point. So the kernel's one job is to keep the intermediate
-silu(x*s0+b0) out of device memory: it stages an input tile plus its 2-pixel
-halo in shared memory (double-buffered across images with cp.async), applies
-the first affine and SiLU once per staged element, and sums the 25 taps in
-float32 registers (see the source's header).
+(`depthwise_silu_segment`, body `_kernel`). Its one job is to keep the
+intermediate silu(x*s0+b0) out of device memory: per element one read of x
+and one write of y. What bounds it on an H100 is instruction issue before
+memory, so the kernel stages a tile and its 2-pixel halo by TMA (no copy
+addresses or bounds checks in any thread), uses a five-instruction SiLU, and
+takes 16x16 tiles (the whole 8x8 map at H = 8) to cut the halo's repeated
+first SiLUs (see the source's header).
 
 `x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
-reads it as NHWC); `taps` is (5, 5, C) in the XLA correlation convention
-(no flip), like the JAX function; the four affines are (C,). Taps and affines
-are float32; x and y float32 (a bfloat16 instantiation has its place in the
-source but is not built yet).
+reads it as NHWC), with C a multiple of 4 on a CUDA tensor (the TMA's row
+pitch); `taps` is (5, 5, C) in the XLA correlation convention (no flip), like
+the JAX function; the four affines are (C,). All float32.
 
 On a CUDA tensor `depthwise_silu_segment` launches the kernel or raises; a
-CPU tensor takes `depthwise_silu_segment_plain`. The gradient
-(`torch.autograd.Function`) mirrors the JAX custom VJP `_seg_bwd` in plain
-PyTorch ops, as the JAX backward is plain XLA.
+CPU tensor takes `depthwise_silu_segment_plain`. The gradient is a
+`torch.autograd.Function` that works under torch.func (grad, vjp, vmap):
+its backward mirrors the JAX custom VJP `_seg_bwd` in plain PyTorch ops, as
+the JAX backward is plain XLA, and computes only the cotangents asked for;
+its vmap rule folds a vmapped x into N (one launch), as a JAX batching rule
+would.
 """
 
 from __future__ import annotations
@@ -63,25 +64,30 @@ def depthwise_silu_segment_plain(x, taps, s0, b0, s1, b1):
 _lib_handle = None
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of a built `csrc/depthwise_segment.cu` (or
+    of another version of it, as an A/B builds) on `lib`; returns `lib`."""
+    lib.gat_depthwise_segment_f32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.gat_depthwise_segment_f32.restype = ctypes.c_int
+    lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _lib():
     """The built library with its C signatures declared (built at first use)."""
     global _lib_handle
     if _lib_handle is None:
         from gen_adversarial_tpu_torch.core.cuda_build import load
-        lib = load(SOURCE)[SOURCE].lib
-        lib.gat_depthwise_segment_f32.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.gat_depthwise_segment_f32.restype = ctypes.c_int
-        lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.gat_cuda_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
+        _lib_handle = declare(load(SOURCE)[SOURCE].lib)
     return _lib_handle
 
 
 def _check(x, taps, s0, b0, s1, b1):
     if x.dim() != 4:
         raise ValueError(f"x must be (N, C, H, W), got shape {tuple(x.shape)}")
-    n, c, h, w = x.shape
+    c = x.shape[1]
     if tuple(taps.shape) != (TAPS, TAPS, c):
         raise ValueError(f"taps must be ({TAPS}, {TAPS}, {c}), got {tuple(taps.shape)}")
     for name, v in (("s0", s0), ("b0", b0), ("s1", s1), ("b1", b1)):
@@ -92,22 +98,28 @@ def _check(x, taps, s0, b0, s1, b1):
         raise ValueError("all arguments must be on one device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("the segment takes float32 tensors")
-    if x.is_cuda:
-        if not x.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError("x must be contiguous in torch.channels_last format")
-        if not all(t.is_contiguous() for t in tensors[1:]):
-            raise ValueError("taps and affines must be contiguous")
-        if n > 65535:
-            raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
 
 
-def _launch(x, taps, s0, b0, s1, b1):
+def _launch(x, taps, s0, b0, s1, b1, lib=None):
+    # layout checks here, on the tensors the kernel gets: under torch.func.vmap
+    # the public function sees batched tensors, whose layout cannot be asked.
+    # `lib`: another build of the kernel (`declare`d), as an A/B launches it
     global launches
     n, c, h, w = x.shape
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("x must be contiguous in torch.channels_last format")
+    if not all(t.is_contiguous() for t in (taps, s0, b0, s1, b1)):
+        raise ValueError("taps and affines must be contiguous")
+    if c % 4 or x.data_ptr() % 16:
+        raise ValueError(f"the kernel's TMA staging needs C a multiple of 4 and x 16-byte "
+                         f"aligned, got C={c}")
+    if n > 65535:
+        raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if x.numel() == 0:
         return y
-    lib = _lib()
+    if lib is None:
+        lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.gat_depthwise_segment_f32(
         x.data_ptr(), taps.data_ptr(), s0.data_ptr(), b0.data_ptr(),
@@ -127,38 +139,71 @@ def _dsilu(a):
 
 
 class _Segment(torch.autograd.Function):
+    """The segment with the JAX VJP `_seg_bwd` as its backward; usable under
+    torch.func (grad, vjp, vmap)."""
+
     @staticmethod
-    def forward(ctx, x, taps, s0, b0, s1, b1):
-        ctx.save_for_backward(x, taps, s0, b0, s1, b1)
+    def forward(x, taps, s0, b0, s1, b1):
         if x.is_cuda:
             return _launch(x, taps, s0, b0, s1, b1)
         return depthwise_silu_segment_plain(x, taps, s0, b0, s1, b1)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, g):
-        # recompute, as the JAX VJP `_seg_bwd` does
+        # recompute, as the JAX VJP `_seg_bwd` does; only the cotangents
+        # asked for (an attack freezes the weights and pulls dx alone)
         x, taps, s0, b0, s1, b1 = ctx.saved_tensors
+        need_x, need_taps, need_s0, need_b0, need_s1, need_b1 = ctx.needs_input_grad
         c = x.shape[1]
         wk = taps_oihw(taps)
         a0 = x * _affine(s0) + _affine(b0)
         xa = F.silu(a0)
         acc = F.conv2d(xa, wk, padding=PAD, groups=c)
         gi = g * _dsilu(acc * _affine(s1) + _affine(b1))
-        dacc = gi * _affine(s1)
-        # the transpose of a correlation: the same depthwise with flipped taps
-        dxa = F.conv2d(dacc, wk.flip(2, 3), padding=PAD, groups=c)
-        gx0 = dxa * _dsilu(a0)
-        dx = gx0 * _affine(s0)
-        # d taps[dy, dx, c] = sum over n, h, w of xa_pad[h+dy, w+dx] * dacc[h, w]
-        xap = F.pad(xa, (PAD, PAD, PAD, PAD))
-        h, w = x.shape[2], x.shape[3]
-        dtaps = torch.stack([
-            torch.stack([(xap[:, :, i:i + h, j:j + w] * dacc).sum((0, 2, 3))
-                         for j in range(TAPS)])
-            for i in range(TAPS)])
         dims = (0, 2, 3)
-        return (dx, dtaps, (gx0 * x).sum(dims), gx0.sum(dims),
-                (gi * acc).sum(dims), gi.sum(dims))
+        dx = dtaps = ds0 = db0 = None
+        ds1 = (gi * acc).sum(dims) if need_s1 else None
+        db1 = gi.sum(dims) if need_b1 else None
+        if need_x or need_taps or need_s0 or need_b0:
+            dacc = gi * _affine(s1)
+        if need_x or need_s0 or need_b0:
+            # the transpose of a correlation: the same depthwise, flipped taps
+            dxa = F.conv2d(dacc, wk.flip(2, 3), padding=PAD, groups=c)
+            gx0 = dxa * _dsilu(a0)
+            dx = gx0 * _affine(s0) if need_x else None
+            ds0 = (gx0 * x).sum(dims) if need_s0 else None
+            db0 = gx0.sum(dims) if need_b0 else None
+        if need_taps:
+            # d taps[dy, dx, c] = sum over n, h, w of xa_pad[h+dy, w+dx] * dacc[h, w]
+            xap = F.pad(xa, (PAD, PAD, PAD, PAD))
+            h, w = x.shape[2], x.shape[3]
+            dtaps = torch.stack([
+                torch.stack([(xap[:, :, i:i + h, j:j + w] * dacc).sum(dims)
+                             for j in range(TAPS)])
+                for i in range(TAPS)])
+        return dx, dtaps, ds0, db0, ds1, db1
+
+    @staticmethod
+    def vmap(info, in_dims, x, taps, s0, b0, s1, b1):
+        # the counterpart of a JAX batching rule: a vmapped x alone folds
+        # into N (one launch); vmapped weights loop over the vmapped dim
+        x_dim, *w_dims = in_dims
+        if all(d is None for d in w_dims):
+            xb = x.movedim(x_dim, 0)
+            folded = xb.flatten(0, 1).contiguous(memory_format=torch.channels_last)
+            y = _Segment.apply(folded, taps, s0, b0, s1, b1)
+            return y.unflatten(0, xb.shape[:2]), 0
+        args = (x, taps, s0, b0, s1, b1)
+        outs = []
+        for i in range(info.batch_size):
+            xi, *wi = [a if d is None else a.select(d, i) for a, d in zip(args, in_dims)]
+            outs.append(_Segment.apply(xi.contiguous(memory_format=torch.channels_last),
+                                       *(w.contiguous() for w in wi)))
+        return torch.stack(outs), 0
 
 
 def depthwise_silu_segment(x, taps, s0, b0, s1, b1):

@@ -18,7 +18,10 @@ On a CUDA tensor `upfirdn_blur` launches the kernel or raises; a CPU tensor
 takes `blur_plain`. The gradient (`torch.autograd.Function`) is the JAX
 custom VJP `_blur_bwd`: the same blur of the cotangent with the taps flipped
 and pad (taps - 1 - pad0, taps - 1 - pad1), through the same kernel. The taps
-are fixed constants and get no cotangent.
+are fixed constants and get no cotangent. The Function works under
+torch.func (grad, vjp, vmap); its vmap rule folds the vmapped dim into N, as
+`pallas_blur`'s custom_vmap rule does, so vmap over a vjp (an attack's class
+gradients) reaches the kernel as one launch.
 """
 
 from __future__ import annotations
@@ -113,27 +116,41 @@ def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
     return y
 
 
-def _blur(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
-    _check(x, taps, pad)
-    if x.is_cuda:
-        return _launch(x, taps, pad)
-    return blur_plain(x, taps, pad)
-
-
 class _Blur(torch.autograd.Function):
+    """The blur with the JAX VJP `_blur_bwd` as its backward; usable under
+    torch.func (grad, vjp, vmap). `relayout` makes a CUDA input channels_last
+    before the layout check: the backward's cotangent comes in whatever
+    layout autograd gives it, and a folded vmap batch is a new tensor."""
+
     @staticmethod
-    def forward(ctx, x, taps, pad):
-        ctx.taps, ctx.pad = taps, pad
-        return _blur(x, taps, pad)
+    def forward(x, taps, pad, relayout):
+        if relayout and x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last)
+        _check(x, taps, pad)
+        if x.is_cuda:
+            return _launch(x, taps, pad)
+        return blur_plain(x, taps, pad)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.taps, ctx.pad, _ = inputs
 
     @staticmethod
     def backward(ctx, g):
-        # the transposed blur: flipped taps, pad (taps-1-pad0, taps-1-pad1)
+        # the transposed blur: flipped taps, pad (taps-1-pad0, taps-1-pad1),
+        # through apply, so that a batched cotangent (vmap over a vjp) takes
+        # the vmap rule below and reaches the kernel folded into N
         t = len(ctx.taps)
         gpad = (t - 1 - ctx.pad[0], t - 1 - ctx.pad[1])
-        if g.is_cuda:
-            g = g.contiguous(memory_format=torch.channels_last)
-        return _blur(g, ctx.taps[::-1], gpad), None, None
+        return _Blur.apply(g, ctx.taps[::-1], gpad, True), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, taps, pad, relayout):
+        # the counterpart of `pallas_blur`'s custom_vmap rule: fold the
+        # vmapped dim into N, one launch
+        xb = x.movedim(in_dims[0], 0)
+        y = _Blur.apply(xb.flatten(0, 1), taps, pad, True)
+        return y.unflatten(0, xb.shape[:2]), 0
 
 
 def upfirdn_blur(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
@@ -141,4 +158,4 @@ def upfirdn_blur(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
 
     x: (N, C, H, W), channels_last float32 on CUDA. A CUDA tensor launches
     the kernel (or raises); a CPU tensor runs the plain version."""
-    return _Blur.apply(x, tuple(float(t) for t in taps), tuple(int(p) for p in pad))
+    return _Blur.apply(x, tuple(float(t) for t in taps), tuple(int(p) for p in pad), False)

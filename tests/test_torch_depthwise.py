@@ -1,14 +1,18 @@
 """The port's fused decoder segment (gen_adversarial_tpu_torch/ops/depthwise.py)
 against the JAX package's: the plain version and the autograd backward on
 the CPU against `reference_segment` and the Pallas kernel in interpret mode
-(forward, and all six cotangents against jax.vjp). The CUDA kernel itself
-is compared with the plain version on the card by tests/test_torch_gpu.py."""
+(forward, and all six cotangents against jax.vjp). The autograd Function
+under torch.func (grad, vjp + vmap over cotangents, vmap of the forward
+over x or over the taps) against jax.grad and a loop, and the x-only
+backward that skips the weight cotangents. The CUDA kernel itself is
+compared with the plain version on the card by tests/test_torch_gpu.py."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.func import grad, vjp, vmap
 
 from gen_adversarial_tpu.ops.pallas_depthwise import (
     depthwise_silu_segment as jax_segment, reference_segment)
@@ -70,6 +74,90 @@ def test_six_cotangents_match_jax_vjp(c, kind):
     got = [targs[0].grad.permute(0, 2, 3, 1)] + [t.grad for t in targs[1:]]
     for name, w_, g_ in zip(("dx", "dtaps", "ds0", "db0", "ds1", "db1"), want, got):
         np.testing.assert_allclose(g_.numpy(), np.asarray(w_), err_msg=name, **BWD_TOL)
+
+
+def test_func_grad_matches_jax_grad():
+    """torch.func.grad of sum(sin(segment(x))) in x against jax.grad of the
+    Pallas kernel (interpret mode, which takes 128-lane widths)."""
+    args = _inputs(128, seed=3)
+    want = jax.grad(lambda v: jnp.sum(jnp.sin(_jax_fn("pallas_interpret")(
+        v, *map(jnp.asarray, args[1:])))))(jnp.asarray(args[0]))
+    x, *w = _torch_args(args)
+    got = grad(lambda v: k1.depthwise_silu_segment(v, *w).sin().sum())(x)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), **BWD_TOL)
+
+
+# vmap against a loop: the same plain ops on folded or sliced batches
+LOOP_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("primals", ["x", "x_taps_affines"])
+def test_vjp_vmapped_over_cotangents_matches_a_loop(primals):
+    """torch.func.vjp, then vmap of its vjp_fn over K = 3 cotangents (what
+    an attack's class gradients do) against a loop of single vjps."""
+    x, *w = _torch_args(_inputs(24, h=6, w=7, seed=4))
+    if primals == "x":
+        y, vjp_fn = vjp(lambda v: k1.depthwise_silu_segment(v, *w), x)
+    else:
+        y, vjp_fn = vjp(k1.depthwise_silu_segment, x, *w)
+    gs = torch.tensor(np.random.RandomState(5).randn(3, *y.shape).astype(np.float32))
+    batched = vmap(vjp_fn)(gs)
+    looped = [vjp_fn(g) for g in gs]
+    assert len(batched) == (1 if primals == "x" else 6)
+    for i, b in enumerate(batched):
+        torch.testing.assert_close(b, torch.stack([l[i] for l in looped]), **LOOP_TOL)
+
+
+@pytest.mark.parametrize("batched", ["x", "taps", "x_and_s1"])
+def test_vmap_of_forward_matches_a_loop(batched):
+    """vmap of the forward over a batched x (folded into N: one call) and
+    over batched taps or affines (a loop of calls) against a Python loop."""
+    rng = np.random.RandomState(6)
+    x, taps, s0, b0, s1, b1 = _torch_args(_inputs(16, h=5, w=9, seed=6))
+    xs = torch.tensor(rng.randn(3, *x.shape).astype(np.float32))
+    ts = torch.tensor((rng.randn(3, *taps.shape) * 0.2).astype(np.float32))
+    s1s = torch.tensor((rng.randn(3, 16) * 0.5 + 1).astype(np.float32))
+    if batched == "x":
+        fn, ins = (lambda v: k1.depthwise_silu_segment(v, taps, s0, b0, s1, b1)), (xs,)
+    elif batched == "taps":
+        fn, ins = (lambda t: k1.depthwise_silu_segment(x, t, s0, b0, s1, b1)), (ts,)
+    else:
+        fn, ins = (lambda v, a: k1.depthwise_silu_segment(v, taps, s0, b0, a, b1)), (xs, s1s)
+    want = torch.stack([fn(*(i[k] for i in ins)) for k in range(3)])
+    torch.testing.assert_close(vmap(fn)(*ins), want, **LOOP_TOL)
+
+
+@pytest.mark.parametrize("route", ["autograd_grad", "func_vjp"])
+def test_x_only_backward_skips_the_weight_cotangents(monkeypatch, route):
+    """With only x differentiated (an attack: frozen weights), the backward
+    returns None for the five weight cotangents and the same dx as the
+    six-cotangent backward. ctx.needs_input_grad is set by autograd on one
+    route and by torch.func on the other: both are checked."""
+    args = _inputs(32, seed=8)
+    g = torch.tensor(np.random.RandomState(9).randn(2, 32, 8, 8).astype(np.float32))
+    returned = []
+    backward = k1._Segment.backward
+
+    def spy(ctx, g_):
+        out = backward(ctx, g_)
+        returned.append(out)
+        return out
+
+    monkeypatch.setattr(k1._Segment, "backward", staticmethod(spy))
+    x, *w = _torch_args(args)
+    if route == "autograd_grad":
+        x.requires_grad_()
+        (dx,) = torch.autograd.grad(k1.depthwise_silu_segment(x, *w), x, g)
+    else:
+        _, vjp_fn = vjp(lambda v: k1.depthwise_silu_segment(v, *w), x)
+        (dx,) = vjp_fn(g)
+    assert len(returned) == 1
+    assert returned[0][0] is not None
+    assert all(r is None for r in returned[0][1:])
+    full = _torch_args(args, requires_grad=True)
+    k1.depthwise_silu_segment(*full).backward(g)
+    assert len(returned) == 2 and all(r is not None for r in returned[1])
+    torch.testing.assert_close(dx, full[0].grad, rtol=0, atol=0)
 
 
 def test_ragged_spatial_size_matches_jax():

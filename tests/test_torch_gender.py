@@ -4,8 +4,10 @@ normalize_before_purify + the E4E purify split + EoT) at a reduced size:
 a 32-px generator (full-width IR-SE-50 encoder, 8 styles) on 64-px images,
 a one-block-per-stage ResNet, EoT-4, batch 2. The input noise and the E4E
 mix noise are drawn by numpy and replayed on both sides, as
-tests/test_torch_slice.py replays the NVAE eps. Also: the 18 alphas against
-the YAML config, and a CPU rehearsal of the factory."""
+tests/test_torch_slice.py replays the NVAE eps; and the defense's input
+gradient (torch.func.vjp against jax.vjp, with a bound measured from JAX's
+own float32-vs-float64 gap). Also: the 18 alphas against the YAML config,
+and a CPU rehearsal of the factory."""
 
 from pathlib import Path
 
@@ -14,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.func import vjp
 
 from gen_adversarial_tpu.core.config import DefenseConfig
 from gen_adversarial_tpu.defenses.base import MLVGMDefense as JaxDefense
@@ -31,7 +34,7 @@ from gen_adversarial_tpu_torch.gender import GENDER_ALPHAS, gender_alphas, gende
 from gen_adversarial_tpu_torch.models.classifiers import ResNet50, ResNetBackbone
 from gen_adversarial_tpu_torch.models.e4e.psp import PSP
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
-from tests.torch_port_helpers import load_port, random_variables, to_nchw
+from tests.torch_port_helpers import load_port, random_variables, rel_err, to_nchw
 
 REPO = Path(__file__).resolve().parent.parent
 SIZE = 32
@@ -79,15 +82,16 @@ def models():
                 alphas=gender_alphas(8))
 
 
-@pytest.mark.parametrize("noise_eps,chunk", [(4.0, None), (0.0, None), (4.0, 2)])
-def test_gender_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
-    """MLVGMDefense + the E4E split + eot_wrap, EoT 4, normalize_before_purify.
-    JAX draws inside a vmap over keys, so its jax.random.normal looks the
-    draw's key up in a table of the numpy draws; the port replays the same
-    draws folded into its batch, draw-major (the mix noise (n_codes, B, 512)
-    on its batch axis 1), chunk by chunk."""
-    eot, n_codes = 4, 8
-    x = _images(5)
+def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
+    """The JAX and the port gender defense (MLVGMDefense + the E4E split +
+    eot_wrap, normalize_before_purify) with the same numpy draws. JAX draws
+    inside a vmap over keys, so `jax_call(fn)` runs fn with jax.random.normal
+    looking the draw's key up in a table of the numpy draws; the port replays
+    the same draws folded into its batch, draw-major (the mix noise
+    (n_codes, B, 512) on its batch axis 1), chunk by chunk. `float64` gives
+    the JAX side float64 variables (build and call it inside
+    jax.enable_x64(True)). Returns (jax_net(x), jax_call, port_net(x))."""
+    n_codes = 8
     rng = np.random.RandomState(6)
     noise = [rng.standard_normal((B, IMAGE, IMAGE, 3)).astype(np.float32) for _ in range(eot)]
     mix = [rng.standard_normal((n_codes, B, 512)).astype(np.float32) for _ in range(eot)]
@@ -114,16 +118,24 @@ def test_gender_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
         # a key that is not in the table gives NaN, and the test fails
         return jnp.where(jnp.any(match), vals[jnp.argmax(match)], jnp.nan).astype(dtype)
 
+    def jax_call(fn):
+        jax.random.normal = fake_normal
+        try:
+            return fn()
+        finally:
+            jax.random.normal = real_normal
+
+    cast = (lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)) if float64 else (
+        lambda t: t)
     enc, dec = jax_split(models["jpsp"])
     jdef = JaxDefense(
-        purify_variables=models["psp_vars"], classifier_variables=models["clf_vars"],
-        alphas=jnp.asarray(models["alphas"]), purify_apply=_compose(enc, dec),
+        purify_variables=cast(models["psp_vars"]),
+        classifier_variables=cast(models["clf_vars"]),
+        alphas=jnp.asarray(cast(models["alphas"])), purify_apply=_compose(enc, dec),
         purify_encode_apply=enc, purify_decode_apply=dec,
         classifier_apply=jax_classifier_apply(models["jclf"]), image_size=IMAGE,
         initial_noise_eps=noise_eps, normalize_before_purify=True)
-    monkeypatch.setattr(jax.random, "normal", fake_normal)
-    want = jax_eot_wrap(jdef, eot_steps=eot, chunk=chunk)(key, jnp.asarray(x))
-    monkeypatch.setattr(jax.random, "normal", real_normal)
+    jnet = jax_eot_wrap(jdef, eot_steps=eot, chunk=chunk)
 
     per = chunk or eot
     draws = []
@@ -137,11 +149,57 @@ def test_gender_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
         models["tpsp"], models["tclf"], torch.tensor(models["alphas"]), tenc, tdec,
         make_classifier_apply(models["tclf"]), initial_noise_eps=noise_eps,
         normalize_before_purify=True)
+    tnet = eot_wrap(tdef, eot_steps=eot, chunk=chunk)
+    return ((lambda x: jnet(key, x)), jax_call,
+            (lambda x: tnet(x, [torch.tensor(d) for d in draws])))
+
+
+@pytest.mark.parametrize("noise_eps,chunk", [(4.0, None), (0.0, None), (4.0, 2)])
+def test_gender_defense_matches_jax(models, noise_eps, chunk):
+    """MLVGMDefense + the E4E split + eot_wrap, EoT 4, every draw made by
+    numpy on both sides (see _gender_pair)."""
+    jnet, jax_call, tnet = _gender_pair(models, noise_eps, chunk)
+    x = _images(5)
+    want = jax_call(lambda: jnet(jnp.asarray(x)))
     with torch.no_grad():
-        got = eot_wrap(tdef, eot_steps=eot, chunk=chunk)(
-            torch.tensor(x), [torch.tensor(d) for d in draws])
+        got = tnet(torch.tensor(x))
     assert np.all(np.isfinite(np.asarray(want)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DEFENSE_TOL)
+
+
+def test_gender_defense_input_gradient_matches_jax(models):
+    """The input gradient of the EoT-4 gender defense (eps 4.0) under a
+    numpy-seeded cotangent on the logits: torch.func.vjp through the port
+    (K2's autograd Function inside) against jax.vjp. With random weights this
+    gradient is ill-conditioned in float32 (the logits agree to 1e-7, the
+    gradient does not), so the bound is measured here: the JAX package's own
+    float32 result against its float64 result on the same weights and draws
+    (jax.enable_x64 as a context, never the global flag). If the port's
+    float32 is no farther from float64 than JAX's, the two float32 results
+    differ by at most twice that gap."""
+    x = _images(5)
+    g = np.random.RandomState(9).randn(B, 2).astype(np.float32)
+
+    def jax_grad(float64):
+        jnet, jax_call, _ = _gender_pair(models, 4.0, None, float64=float64)
+        # the defense returns float32 logits either way (its last cast)
+        xs = jnp.asarray(x.astype(np.float64 if float64 else np.float32))
+        return np.asarray(jax_call(lambda: jax.vjp(jnet, xs)[1](jnp.asarray(g))[0]))
+
+    want = jax_grad(False)
+    with jax.enable_x64(True):
+        want64 = jax_grad(True)
+    assert want64.dtype == np.float64
+    gap = rel_err(want, want64)
+    _, _, tnet = _gender_pair(models, 4.0, None)
+    _, vjp_fn = vjp(tnet, torch.tensor(x))
+    (got,) = vjp_fn(torch.tensor(g))
+    assert np.all(np.isfinite(want)) and np.abs(want).max() > 0
+    err = rel_err(got.detach().numpy(), want)
+    print(f"JAX float32 vs float64 {gap:.3e}; port vs JAX float32 {err:.3e}; "
+          f"port vs JAX float64 {rel_err(got.detach().numpy(), want64):.3e}")
+    assert 0 < gap < 1e-2
+    assert err <= 2 * gap
 
 
 def test_gender_alphas_match_the_config():

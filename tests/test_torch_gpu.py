@@ -10,6 +10,7 @@ tests.)"""
 import numpy as np
 import pytest
 import torch
+from torch.func import vjp, vmap
 
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.flagship import flagship
@@ -32,13 +33,20 @@ def _need_card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# (C, H) of the flagship's decoder segments (NVAEConfig.decoder_segment_shapes)
+FLAGSHIP_SEGMENTS = [(1536, 8), (1536, 16), (768, 16), (768, 32), (384, 32), (192, 64),
+                     (96, 64)]
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
-    """The kernel against its plain version at flagship widths, a ragged
-    width and size, and batch 1."""
+    """The kernel against its plain version at the flagship's seven shapes
+    (N = 4), a ragged width and size, and batch 1."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, c, h, w in [(4, 1536, 8, 8), (4, 192, 64, 64), (1, 40, 13, 5)]:
+    shapes = [(4, c, h, h) for c, h in FLAGSHIP_SEGMENTS] + [(1, 40, 13, 5), (1, 96, 64, 64),
+                                                             (3, 44, 17, 33)]
+    for n, c, h, w in shapes:
         x = torch.randn(n, c, h, w, device="cuda", generator=gen).contiguous(
             memory_format=torch.channels_last)
         taps = torch.randn(5, 5, c, device="cuda", generator=gen) * 0.2
@@ -82,6 +90,80 @@ def test_cuda_wrapper_rejects_non_channels_last_input():
     aff = [torch.ones(32, device="cuda") for _ in range(4)]
     with pytest.raises(ValueError):
         k1.depthwise_silu_segment(x, taps, *aff)
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_refuses_widths_the_tma_cannot_stage():
+    """The kernel stages x by TMA, whose row pitch (C x 4 bytes) must be a
+    multiple of 16: other widths are refused, not staged another way."""
+    _need_card()
+    x = torch.randn(1, 6, 8, 8, device="cuda").contiguous(memory_format=torch.channels_last)
+    taps = torch.randn(5, 5, 6, device="cuda")
+    aff = [torch.ones(6, device="cuda") for _ in range(4)]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        k1.depthwise_silu_segment(x, taps, *aff)
+
+
+@pytest.mark.gpu
+def test_cuda_x_only_backward_matches_cpu():
+    """With the weights frozen (an attack), the backward computes dx alone;
+    on the card it agrees with the CPU one."""
+    _need_card()
+    rng = np.random.RandomState(6)
+    n, c, h = 2, 96, 16
+    args = [rng.randn(n, c, h, h), rng.randn(5, 5, c) * 0.2,
+            *(rng.randn(c) * 0.5 + 1 for _ in range(4))]
+    g = torch.tensor(rng.randn(n, c, h, h).astype(np.float32))
+    dx = {}
+    for dev in ("cpu", "cuda"):
+        x, *w = [torch.tensor(a.astype(np.float32), device=dev) for a in args]
+        x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+        (dx[dev],) = torch.autograd.grad(k1.depthwise_silu_segment(x, *w), x, g.to(dev))
+    torch.testing.assert_close(dx["cuda"].cpu(), dx["cpu"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_func_vjp_vmapped_over_cotangents_matches_a_loop():
+    """torch.func.vjp through K1 and K2 on the card, then vmap of the vjp_fn
+    over 3 cotangents, against a loop of single vjps. K2's backward is the
+    kernel again: the batched cotangent reaches it folded into N, one launch.
+    vmap of K1's forward over a batched x is one launch too."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = _channels_last((2, 96, 16, 16), gen)
+    taps = torch.randn(5, 5, 96, device="cuda", generator=gen) * 0.2
+    aff = [torch.randn(96, device="cuda", generator=gen) * 0.5 + 1 for _ in range(4)]
+
+    def seg(v):
+        return k1.depthwise_silu_segment(v, taps, *aff)
+
+    before = k1.launches
+    y, vjp_fn = vjp(seg, x)
+    gs = torch.randn(3, *y.shape, device="cuda", generator=gen)
+    batched = vmap(vjp_fn)(gs)[0]
+    assert k1.launches == before + 1
+    torch.testing.assert_close(batched, torch.stack([vjp_fn(g)[0] for g in gs]),
+                               rtol=1e-5, atol=1e-6)
+    xs = torch.randn(3, 2, 96, 16, 16, device="cuda", generator=gen)
+    before = k1.launches
+    got = vmap(seg)(xs)
+    assert k1.launches == before + 1
+    torch.testing.assert_close(
+        got, torch.stack([k1.depthwise_silu_segment_plain(v, taps, *aff) for v in xs]),
+        **K1_TOL)
+
+    x = _channels_last((2, 64, 21, 18), gen)
+    taps2, pad = (0.1, 0.2, 0.3, 0.4), (2, 1)
+    before = k2.launches
+    y, vjp_fn = vjp(lambda v: k2.upfirdn_blur(v, taps2, pad), x)
+    gs = torch.randn(3, *y.shape, device="cuda", generator=gen)
+    batched = vmap(vjp_fn)(gs)[0]
+    assert k2.launches == before + 2  # the forward, one folded backward
+    torch.testing.assert_close(batched, torch.stack([vjp_fn(g)[0] for g in gs]), **K2_TOL)
+    xp = x.clone().requires_grad_()
+    yp = k2.blur_plain(xp, taps2, pad)
+    want = torch.stack([torch.autograd.grad(yp, xp, g, retain_graph=True)[0] for g in gs])
+    torch.testing.assert_close(batched, want, **K2_TOL)
 
 
 @pytest.mark.gpu

@@ -2,8 +2,10 @@
 a tiny NVAE and a narrow VGG11-BN: the NVAE purify, the classifier, and the
 whole EoT defense (MLVGMDefense + eot_wrap) at initial noise eps 2.0 and 0.0
 (the shared-encode path), with every random draw made by numpy and replayed
-on both sides. Also: a CPU rehearsal of the flagship factory at reduced
-depth, and that the port imports nothing of JAX or the JAX package."""
+on both sides, and its input gradient (torch.func.vjp against jax.vjp, and
+vmap over the class cotangents against a loop). Also: a CPU rehearsal of the
+flagship factory at reduced depth, and that the port imports nothing of JAX
+or the JAX package."""
 
 import ast
 import dataclasses
@@ -16,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.func import vjp, vmap
 
 from gen_adversarial_tpu.defenses.base import MLVGMDefense as JaxDefense
 from gen_adversarial_tpu.defenses.base import make_classifier_apply as jax_classifier_apply
@@ -31,7 +34,7 @@ from gen_adversarial_tpu_torch.defenses.purify import make_nvae_purify_split
 from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, flagship
 from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
 from gen_adversarial_tpu_torch.models.nvae.model import NVAE, NVAEConfig, eps_shapes
-from tests.torch_port_helpers import load_port, random_variables, to_nchw
+from tests.torch_port_helpers import load_port, random_variables, rel_err, to_nchw
 
 REPO = Path(__file__).resolve().parent.parent
 CFG = dict(resolution=16, initial_channels=8, n_pre_post_blocks=1, n_pre_post_cells=2,
@@ -112,15 +115,15 @@ def _jax_key_tables(key, eot, n_latents):
     return out
 
 
-@pytest.mark.parametrize("noise_eps,chunk", [(2.0, None), (0.0, None), (2.0, 2)])
-def test_eot_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
-    """MLVGMDefense + eot_wrap, EoT 4. JAX draws inside a vmap over keys, so
-    its jax.random.normal is replaced by a lookup of the draw's key in a table
-    of the numpy draws; the port replays the same draws folded into its
-    batch, draw-major, chunk by chunk."""
-    eot, tcfg = 4, models["tcfg"]
+def _eot_pair(models, noise_eps, chunk, eot=4):
+    """The JAX and the port EoT defense (MLVGMDefense + eot_wrap) with the
+    same numpy draws. JAX draws inside a vmap over keys, so `jax_call(fn)`
+    runs fn with jax.random.normal replaced by a lookup of the draw's key in
+    a table of the numpy draws; the port replays the same draws folded into
+    its batch, draw-major, chunk by chunk. Returns (jax_net(x), jax_call,
+    port_net(x))."""
+    tcfg = models["tcfg"]
     n = tcfg.n_latents
-    x = _images(6)
     rng = np.random.RandomState(7)
     noise = [rng.standard_normal((B, 16, 16, 3)).astype(np.float32) for _ in range(eot)]
     eps = [[rng.standard_normal(s).astype(np.float32) for s in eps_shapes(tcfg, B)]
@@ -145,6 +148,13 @@ def test_eot_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
         # a key that is not in the table gives NaN, and the test fails
         return jnp.where(jnp.any(match), vals[jnp.argmax(match)], jnp.nan).astype(dtype)
 
+    def jax_call(fn):
+        jax.random.normal = fake_normal
+        try:
+            return fn()
+        finally:
+            jax.random.normal = real_normal
+
     enc, dec = jax_split(models["jnvae"], TEMP)
     jdef = JaxDefense(
         purify_variables=models["nvae_vars"], classifier_variables=models["clf_vars"],
@@ -152,9 +162,7 @@ def test_eot_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
         purify_encode_apply=enc, purify_decode_apply=dec,
         classifier_apply=jax_classifier_apply(models["jclf"]), image_size=16,
         initial_noise_eps=noise_eps, normalize_before_purify=False)
-    monkeypatch.setattr(jax.random, "normal", fake_normal)
-    want = jax_eot_wrap(jdef, eot_steps=eot, chunk=chunk)(key, jnp.asarray(x))
-    monkeypatch.setattr(jax.random, "normal", real_normal)
+    jnet = jax_eot_wrap(jdef, eot_steps=eot, chunk=chunk)
 
     per = chunk or eot
     draws = []
@@ -167,11 +175,55 @@ def test_eot_defense_matches_jax(models, monkeypatch, noise_eps, chunk):
     tdef = MLVGMDefense(
         models["tnvae"], models["tclf"], torch.tensor(models["alphas"]), tenc, tdec,
         make_classifier_apply(models["tclf"]), initial_noise_eps=noise_eps)
+    tnet = eot_wrap(tdef, eot_steps=eot, chunk=chunk)
+    return ((lambda x: jnet(key, x)), jax_call,
+            (lambda x: tnet(x, [torch.tensor(d) for d in draws])))
+
+
+@pytest.mark.parametrize("noise_eps,chunk", [(2.0, None), (0.0, None), (2.0, 2)])
+def test_eot_defense_matches_jax(models, noise_eps, chunk):
+    """MLVGMDefense + eot_wrap, EoT 4, every draw made by numpy on both sides
+    (see _eot_pair)."""
+    jnet, jax_call, tnet = _eot_pair(models, noise_eps, chunk)
+    x = _images(6)
+    want = jax_call(lambda: jnet(jnp.asarray(x)))
     with torch.no_grad():
-        got = eot_wrap(tdef, eot_steps=eot, chunk=chunk)(
-            torch.tensor(x), [torch.tensor(d) for d in draws])
+        got = tnet(torch.tensor(x))
     assert np.all(np.isfinite(np.asarray(want)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **SLICE_TOL)
+
+
+# the input gradient through the defense, port vs JAX: measured at 3.4e-7 and
+# 4.6e-7 relative (float32 on both sides, other summation orders)
+GRAD_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("noise_eps", [2.0, 0.0])
+def test_eot_defense_input_gradient_matches_jax(models, noise_eps):
+    """The input gradient of the EoT-4 defense under a numpy-seeded cotangent
+    on the logits: torch.func.vjp through the port (K1's autograd Function
+    inside) against jax.vjp, relative to the largest entry."""
+    jnet, jax_call, tnet = _eot_pair(models, noise_eps, None)
+    x = _images(6)
+    g = np.random.RandomState(8).randn(B, N_CLASSES).astype(np.float32)
+    want = jax_call(lambda: jax.vjp(jnet, jnp.asarray(x))[1](jnp.asarray(g))[0])
+    _, vjp_fn = vjp(tnet, torch.tensor(x))
+    (got,) = vjp_fn(torch.tensor(g))
+    assert np.all(np.isfinite(np.asarray(want))) and np.abs(np.asarray(want)).max() > 0
+    assert rel_err(got.detach().numpy(), want) <= GRAD_RTOL
+
+
+def test_class_gradients_vmap_over_vjp_match_a_loop(models):
+    """What an attack's class gradients do: vmap of the defense's vjp_fn over
+    the one-hot class cotangents (K1's vmap rule folds the classes into N)
+    equals a loop of single vjps."""
+    _, _, tnet = _eot_pair(models, 2.0, None)
+    logits, vjp_fn = vjp(tnet, torch.tensor(_images(6)))
+    onehots = torch.eye(N_CLASSES)[:, None, :].expand(N_CLASSES, B, N_CLASSES)
+    (batched,) = vmap(vjp_fn)(onehots)
+    looped = torch.stack([vjp_fn(o)[0] for o in onehots])
+    assert batched.shape == (N_CLASSES, B, 16, 16, 3)
+    assert rel_err(batched.detach().numpy(), looped.detach().numpy()) <= GRAD_RTOL
 
 
 def test_convert_reports_missing_and_misshapen_leaves(models):

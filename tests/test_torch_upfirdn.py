@@ -3,7 +3,9 @@ JAX package on the CPU: the blur's plain version against the TPU kernel's
 own semantics (`pallas_blur` in interpret mode, run as
 tests/test_pallas_upfirdn.py runs it) and against JAX `upfirdn2d`; its
 x-gradient through the port's autograd path against `jax.grad` of
-`pallas_blur_diff`; and upfirdn2d with up/down sampling. Asymmetric taps are
+`pallas_blur_diff`; the autograd Function under torch.func (grad against
+jax.grad, vjp + vmap over cotangents and vmap of the forward against a
+loop); and upfirdn2d with up/down sampling. Asymmetric taps are
 used beside the binomial ones, whose symmetry would hide a missing flip.
 Inputs come from a numpy seed; the port is NCHW, JAX NHWC.
 
@@ -15,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.func import grad, vjp, vmap
 
 from gen_adversarial_tpu.ops.pallas_upfirdn import pallas_blur, pallas_blur_diff
 from gen_adversarial_tpu.ops.upfirdn2d import make_fir_kernel as jax_make_fir_kernel
@@ -69,6 +72,43 @@ def test_blur_x_gradient_matches_pallas_blur_diff(taps, pad):
     tx = to_nchw(x).requires_grad_()
     torch.sin(k2.upfirdn_blur(tx, taps.astype(np.float32), pad)).sum().backward()
     np.testing.assert_allclose(to_nhwc(tx.grad), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("taps,pad", [(ASYM4, (2, 1)), (ASYM3, (1, 1))])
+def test_func_grad_matches_pallas_blur_diff(taps, pad):
+    """torch.func.grad (the Function's setup_context and its backward, which
+    calls the Function again) against jax.grad through the custom VJP."""
+    x = _x((2, 10, 7, 8), seed=4)
+    k = jnp.asarray(taps.astype(np.float32))
+    want = jax.grad(lambda v: jnp.sum(jnp.sin(pallas_blur_diff(v, k, pad, True))))(
+        jnp.asarray(x))
+    got = grad(lambda v: torch.sin(k2.upfirdn_blur(v, taps.astype(np.float32), pad)).sum())(
+        to_nchw(x))
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("transform", ["vjp_vmap", "vmap_forward"])
+def test_func_vmap_matches_a_loop(transform):
+    """vmap of the vjp over K = 3 cotangents (the batched cotangent goes
+    through the vmap rule, folded into N) and vmap of the forward over a
+    batched x, against a loop of single calls."""
+    taps, pad = ASYM4.astype(np.float32), (2, 1)
+    rng = np.random.RandomState(5)
+    x = to_nchw(_x((2, 9, 6, 8), seed=5))
+
+    def fn(v):
+        return k2.upfirdn_blur(v, taps, pad)
+
+    if transform == "vjp_vmap":
+        y, vjp_fn = vjp(fn, x)
+        batch = torch.tensor(rng.randn(3, *y.shape).astype(np.float32))
+        got = vmap(vjp_fn)(batch)[0]
+        want = torch.stack([vjp_fn(g)[0] for g in batch])
+    else:
+        batch = torch.tensor(rng.randn(3, *x.shape).astype(np.float32))
+        got = vmap(fn)(batch)
+        want = torch.stack([fn(v) for v in batch])
+    torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.parametrize("up,down,pad,kernel_2d", [

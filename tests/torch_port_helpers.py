@@ -1,6 +1,6 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: random flax variables from a numpy seed, their transfer into a port
-module, and NHWC/NCHW moves."""
+module, NHWC/NCHW moves, and the relative error the gradient tests bound."""
 
 import jax
 import numpy as np
@@ -62,3 +62,9 @@ def to_nchw(a) -> torch.Tensor:
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
