@@ -13,13 +13,16 @@ gives it and drives the path, float32, random weights from a seed:
   eps 2.0) on a batch of 4 images, through K1 (csrc/depthwise_segment.cu);
 - the gender defense (E4E -> StyleGAN2-1024 -> ResNet50, EoT-32, initial
   noise eps 4.0) on a batch of 2 images at 256 px, through K2
-  (csrc/upfirdn_blur.cu).
+  (csrc/upfirdn_blur.cu);
+- the cars defense (Style-Transformer -> StyleGAN2-512 -> ResNeXt50,
+  EoT-32, initial noise eps 4.0) on a batch of 4 images at 128 px, through
+  K2 at the 512-px generator's shapes.
 
 Each path is then rehearsed small on the GPU and on the CPU with the same
 weights and draws. Phase `grad` takes input gradients the way the attacks
 will (torch.func.vjp, then vmap over the one-hot class cotangents) through
-both small defenses on the GPU and the CPU, and one input gradient of the
-full ids flagship, timed, with its peak memory. Every phase prints one JSON
+the three small defenses on the GPU and the CPU, and one input gradient of
+the full ids flagship, timed, with its peak memory. Every phase prints one JSON
 line with its elapsed seconds;
 the second-to-last line summarises the kernels, and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -48,9 +51,10 @@ K1_TOL = 1e-5
 # whole defense on the GPU vs on the CPU: ~50 layers of float32 convolutions
 # in other summation orders
 PARITY_RTOL = 1e-4
-# the small gender defense's input gradient, GPU float32 vs CPU float64: at
-# most this many times as far as the CPU's float32 gradient (phase `grad`)
-GENDER_GAP_FACTOR = 1.2
+# the small gender and cars defenses' input gradients, GPU float32 vs CPU
+# float64: at most this many times as far as the CPU's float32 gradient
+# (phase `grad`)
+GRAD_GAP_FACTOR = 1.2
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -62,6 +66,12 @@ GENDER_EOT_CHUNK = None
 K2_TOL = 1e-5
 K2_FLOP_PER_OUTPUT = 16  # 4 FMAs vertical (per staged column), 4 horizontal
 BLUR_PAD = (1, 1)  # the blur after a 3x3 up-convolution
+# the cars defense: batch 4 images x EoT-32, all 32 draws in one batch
+CARS_BATCH = 4
+CARS_EOT_CHUNK = None
+# K2 at the cars shapes: its plain version and the library call are timed at
+# fewer launches (each is ~0.1-0.3 s at the 512-px shape)
+CARS_SLOW_REPS = 5
 
 T0 = time.monotonic()
 
@@ -88,6 +98,7 @@ def run_phase(name, fn):
 
 
 def cuda_ms(torch, fn, reps=KERNEL_REPS, warmup=3) -> float:
+    """Mean device ms of fn over `reps` launches, after `warmup`."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -109,6 +120,7 @@ def main() -> int:
 
     import torch.nn.functional as F
     from torch.func import vjp, vmap
+    from gen_adversarial_tpu_torch import cars
     from gen_adversarial_tpu_torch.core import cuda_build
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, flagship
@@ -276,13 +288,18 @@ def main() -> int:
     n_gender = EOT_STEPS * GENDER_BATCH
     k2_sites = [(GENERATOR_CHANNELS[r], r + 1) for r in (2 ** i for i in range(3, 11))]
 
-    def kernels_k2_phase():
-        # normalized, times the factor 2 of an up-convolution
-        taps = tuple(2.0 * t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
+    # normalized, times the factor 2 of an up-convolution
+    taps = tuple(2.0 * t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
+
+    def k2_rows(sites, n, slow_reps=KERNEL_REPS):
+        """K2 against its plain version at each (C, H_in) of `sites` on a
+        batch of n, timed with the plain version, the library call, a copy of
+        the same bytes and the bound; the plain version and the library call
+        at `slow_reps` launches."""
         kf = torch.tensor(taps[::-1], device=dev)
         rows = []
-        for c, h in k2_sites:
-            x = torch.randn(n_gender, c, h, h, device=dev, generator=gen).contiguous(
+        for c, h in sites:
+            x = torch.randn(n, c, h, h, device=dev, generator=gen).contiguous(
                 memory_format=torch.channels_last)
             y = k2.upfirdn_blur(x, taps, BLUR_PAD)
             torch.cuda.synchronize()
@@ -295,17 +312,18 @@ def main() -> int:
                                    f"max abs err {err} > {K2_TOL * scale}")
             w2d = torch.outer(kf, kf).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
-            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD))
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), slow_reps)
             # at pad (1, 1) one depthwise convolution with the 2-D taps is the
             # same function
-            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c))
+            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
+                                 slow_reps)
             copy = torch.empty_like(x)
             copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
             del copy
             bytes_moved = (x.numel() + y.numel()) * 4
             bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
                                  y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S)
-            rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_gender,
+            rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n,
                          "per_decode": 1, "elements_in": x.numel(),
                          "max_abs_err": err, "tol": K2_TOL * scale, "kernel_ms": ms,
                          "plain_ms": plain_ms, "library_ms": library_ms,
@@ -313,6 +331,10 @@ def main() -> int:
                          "copy_ms": copy_ms})
             del x, y
             torch.cuda.empty_cache()
+        return rows
+
+    def kernels_k2_phase():
+        rows = k2_rows(k2_sites, n_gender)
         # the backward (the same kernel, flipped taps, transposed pads) once,
         # at a mid shape, against autograd through the plain version
         c, h = k2_sites[3]
@@ -418,6 +440,102 @@ def main() -> int:
     run_phase("gender_parity", gender_parity_phase)
     torch.cuda.empty_cache()
 
+    # the blur after every up-convolution of the 512-px generator: output
+    # r x r at r = 8 .. 512, one launch per decode each, on the folded EoT
+    # batch of the cars call
+    n_cars = EOT_STEPS * CARS_BATCH
+    k2_cars_sites = [(GENERATOR_CHANNELS[r], r + 1)
+                     for r in (2 ** i for i in range(3, 1 + int(math.log2(cars.OUTPUT_SIZE))))]
+
+    def kernels_k2_cars_phase():
+        return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
+                "slow_reps": CARS_SLOW_REPS,
+                "shapes": k2_rows(k2_cars_sites, n_cars, CARS_SLOW_REPS)}
+
+    kernels2_cars = run_phase("kernels_k2_cars", kernels_k2_cars_phase)
+
+    def cars_phase():
+        t = time.monotonic()
+        defense = cars.cars_defense(device=dev, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t
+        net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=CARS_EOT_CHUNK)
+        images = torch.rand(CARS_BATCH, cars.IMAGE_SIZE, cars.IMAGE_SIZE, 3, device=dev,
+                            generator=gen)
+        draws = torch.Generator(device=dev).manual_seed(5)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # counts from here on are this path's
+        times = []
+        with torch.no_grad():
+            for _ in range(1 + TIMED_CALLS):  # one warm-up, then the timed calls
+                t = time.monotonic()
+                logits = net(images, draws)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t)
+        launches = k2.launches
+        passes = 1 + TIMED_CALLS
+        per_decode = len(k2_cars_sites)
+        if tuple(logits.shape) != (CARS_BATCH, cars.N_CLASSES):
+            raise RuntimeError(f"logits have shape {tuple(logits.shape)}")
+        if not torch.isfinite(logits).all():
+            raise RuntimeError("logits are not all finite")
+        if launches != per_decode * passes or k1.launches != 0:
+            raise RuntimeError(f"K2 launched {launches} times, expected {per_decode} x "
+                               f"{passes} decode passes; K1 {k1.launches} times, expected 0")
+        timed = sum(times[1:])
+        return {"batch": CARS_BATCH, "eot_steps": EOT_STEPS, "eot_chunk": CARS_EOT_CHUNK,
+                "initial_noise_eps": defense.initial_noise_eps,
+                "stylegan_size": cars.OUTPUT_SIZE, "image_size": cars.IMAGE_SIZE,
+                "dtype": "float32", "weights_build_s": build_s,
+                "logits_shape": list(logits.shape), "finite": True,
+                "k2_launches": launches, "k1_launches": k1.launches,
+                "decode_passes": passes, "k2_launches_per_decode": per_decode,
+                "call_s": times, "images_per_s": CARS_BATCH * TIMED_CALLS / timed,
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+    cars_run = run_phase("cars", cars_phase)
+    torch.cuda.empty_cache()  # the cars weights went with its phase
+
+    def small_cars(eps, b, eot):
+        """A small cars defense (32-px generator, full-width encoder, which
+        always sees the 192 x 256 crop, one ResNeXt block per stage) on the
+        CPU and the same weights on the GPU, with EoT draws and 128-px images
+        from a numpy seed."""
+        import numpy as np
+        size, n_codes, image = 32, 8, cars.IMAGE_SIZE
+        kw = dict(initial_noise_eps=eps, seed=3, output_size=size,
+                  classifier_layers=(1, 1, 1, 1))
+        cpu = cars.cars_defense(device="cpu", **kw)
+        gpu = cars.cars_defense(device=dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(4)
+        x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
+        shapes = ([(eot * b, image, image, 3)] if eps > 0 else []) + [(n_codes, eot * b, 512)]
+        draws = [torch.tensor(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+        return cpu, gpu, x, draws, eot, size
+
+    def cars_parity_phase():
+        # the small cars defense on the GPU (kernel path) against the same
+        # weights and draws on the CPU (plain path)
+        cpu, gpu, x, draws, eot, size = small_cars(cars.INITIAL_NOISE_EPS, 2, 4)
+        before = k2.launches
+        with torch.no_grad():
+            want = eot_wrap(cpu, eot)(x, draws)
+            got = eot_wrap(gpu, eot)(x.to(dev), draws).cpu()
+        launched = k2.launches - before
+        if launched != 3:  # the up-convolutions at 8, 16 and 32 px
+            raise RuntimeError(f"the GPU defense launched K2 {launched} times, expected 3")
+        err = (got - want).abs().max().item()
+        tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+        if not math.isfinite(err) or err > tol:
+            raise RuntimeError(f"GPU cars defense disagrees with the CPU one: {err} > {tol}")
+        return {"stylegan_size": size, "eot_steps": eot, "batch": x.shape[0],
+                "initial_noise_eps": cars.INITIAL_NOISE_EPS, "k2_launches": launched,
+                "max_abs_err": err, "tol": tol}
+
+    run_phase("cars_parity", cars_parity_phase)
+    torch.cuda.empty_cache()
+
     def class_grads(net, x, draws):
         """The input gradient of every class logit (summed over the batch):
         torch.func.vjp, then vmap of its vjp_fn over the one-hot class
@@ -445,27 +563,40 @@ def main() -> int:
             raise RuntimeError(f"ids input gradients, GPU vs CPU: {err} > {PARITY_RTOL}")
         out["ids"] = {"classes": want.shape[0], "eot_steps": eot, "rel_err": err,
                       "tol": PARITY_RTOL, "k1_launches": k1.launches}
-        # the small gender defense: GPU (K2 forward and backward) vs CPU. With
+        # a small StyleGAN defense: GPU (K2 forward and backward) vs CPU. With
         # random weights its input gradient is ill-conditioned in float32 (the
         # logits agree to 1e-7, the gradient to ~1e-3), so it is held against
         # the CPU's float64 result: the GPU's float32 gradient may be no
-        # farther from it than GENDER_GAP_FACTOR x the CPU's float32 one is
-        cpu, gpu, x, draws, eot, _ = small_gender()
-        before = k2.launches
-        want = class_grads(eot_wrap(cpu, eot), x, draws)
-        got = class_grads(eot_wrap(gpu, eot), x.to(dev), draws).cpu()
-        k2_gender = k2.launches - before
-        want64 = class_grads(eot_wrap(cpu.double(), eot), x.double(),
-                             [d.double() for d in draws])
-        gap = rel_err(want, want64)
-        tol = max(PARITY_RTOL, GENDER_GAP_FACTOR * gap)
-        err = rel_err(got, want64)
-        if not math.isfinite(err) or err > tol:
-            raise RuntimeError(f"gender input gradients, GPU float32 vs CPU float64: {err} > "
-                               f"{GENDER_GAP_FACTOR} x the CPU float32 one's {gap}")
-        out["gender"] = {"classes": want.shape[0], "eot_steps": eot,
+        # farther from it than GRAD_GAP_FACTOR x the CPU's float32 one is.
+        # cuDNN's default algorithm choice varies from run to run, and with
+        # it that distance (the cars gradient's read 0.16 and 1.0 x the CPU's
+        # in two runs of one tree), so the GPU runs cuDNN's deterministic
+        # algorithms here and the check reads the same number every run
+        def against_float64(name, cpu, gpu, x, draws, eot):
+            before = k2.launches
+            want = class_grads(eot_wrap(cpu, eot), x, draws)
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=True, allow_tf32=False):
+                got = class_grads(eot_wrap(gpu, eot), x.to(dev), draws).cpu()
+            launched = k2.launches - before
+            want64 = class_grads(eot_wrap(cpu.double(), eot), x.double(),
+                                 [d.double() for d in draws])
+            gap = rel_err(want, want64)
+            tol = max(PARITY_RTOL, GRAD_GAP_FACTOR * gap)
+            err = rel_err(got, want64)
+            if not math.isfinite(err) or err > tol:
+                raise RuntimeError(f"{name} input gradients, GPU float32 vs CPU float64: {err} "
+                                   f"> {GRAD_GAP_FACTOR} x the CPU float32 one's {gap}")
+            out[name] = {"classes": want.shape[0], "eot_steps": eot, "batch": x.shape[0],
                          "gpu_f32_vs_cpu_f64": err, "cpu_f32_vs_cpu_f64": gap, "tol": tol,
-                         "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": k2_gender}
+                         "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": launched}
+
+        cpu, gpu, x, draws, eot, _ = small_gender()
+        against_float64("gender", cpu, gpu, x, draws, eot)
+        # the small cars defense, the same way, at eps 0 (the shared encode:
+        # the CPU's float64 encoder runs once per image at 192 x 256)
+        cpu, gpu, x, draws, eot, _ = small_cars(0.0, 1, 2)
+        against_float64("cars", cpu, gpu, x, draws, eot)
         del cpu, gpu
         torch.cuda.empty_cache()
         # one input gradient of the full flagship (batch 4, EoT-32): what the
@@ -508,38 +639,46 @@ def main() -> int:
     def mean_call_s(phase):
         return sum(phase["call_s"][1:]) / TIMED_CALLS
 
-    def summary(rows, **entry):
+    def path_numbers(rows, launches, per, path, call_s):
+        """A kernel's numbers on one path: per decode of its EoT batch, the
+        sums over the launches at the path's shapes."""
         def weighted(key):
             return sum(r[key] * r["per_decode"] for r in rows)
-        out = {"name": entry.pop("name"), "route": "cuda",
-               "source": entry.pop("source"), "replaces": entry.pop("replaces"),
-               "launches": entry.pop("launches"),
-               "max_abs_err": max(r["max_abs_err"] for r in rows),
-               "ms": weighted("kernel_ms"), "plain_ms": weighted("plain_ms"),
-               "bound_ms": weighted("bound_ms"), "bound_by": "bytes",
-               "library_ms": weighted("library_ms"), "copy_ms": weighted("copy_ms")}
-        path, call_s = entry.pop("path")
-        out.update(entry)
-        out[f"share_of_{path}_call"] = out["ms"] / 1e3 / call_s
-        return out
+        ms = weighted("kernel_ms")
+        return {"launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": ms, "plain_ms": weighted("plain_ms"), "bound_ms": weighted("bound_ms"),
+                "bound_by": "bytes", "library_ms": weighted("library_ms"),
+                "copy_ms": weighted("copy_ms"), "per": per,
+                f"share_of_{path}_call": ms / 1e3 / call_s}
 
+    def entry(name, source, replaces, library, **numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"gen_adversarial_tpu_torch/csrc/{source}.cu",
+                "replaces": replaces, **numbers, "library": library}
+
+    def per_decode(path, n):
+        return (f"one decode of the {path} EoT-{EOT_STEPS} batch (N={n}): "
+                "the sum over its launches")
+
+    k2_gender = path_numbers(kernels2["shapes"], gender["k2_launches"],
+                             per_decode("gender", n_gender), "gender", mean_call_s(gender))
+    k2_cars = path_numbers(kernels2_cars["shapes"], cars_run["k2_launches"],
+                           per_decode("cars", n_cars), "cars", mean_call_s(cars_run))
     emit({"kernels": [
-        summary(kernels["shapes"], name="depthwise_silu_segment",
-                source=f"gen_adversarial_tpu_torch/csrc/{k1.SOURCE}.cu",
-                replaces="gen_adversarial_tpu/ops/pallas_depthwise.py:87",
-                launches=flag["k1_launches"],
-                library="torch.nn.functional.conv2d(groups=C), the depthwise only",
-                per=f"one decode of the ids EoT-{EOT_STEPS} batch (N={n}): "
-                    "the sum over its launches",
-                path=("flagship", mean_call_s(flag))),
-        summary(kernels2["shapes"], name="upfirdn_blur",
-                source=f"gen_adversarial_tpu_torch/csrc/{k2.SOURCE}.cu",
-                replaces="gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
-                launches=gender["k2_launches"],
-                library="torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C)",
-                per=f"one decode of the gender EoT-{EOT_STEPS} batch (N={n_gender}): "
-                    "the sum over its launches",
-                path=("gender", mean_call_s(gender))),
+        entry("depthwise_silu_segment", k1.SOURCE,
+              "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
+              "torch.nn.functional.conv2d(groups=C), the depthwise only",
+              **path_numbers(kernels["shapes"], flag["k1_launches"], per_decode("ids", n),
+                             "flagship", mean_call_s(flag))),
+        # the top-level numbers are the gender path's; `launches` and
+        # `max_abs_err` cover both paths, and `cars` holds the cars path's
+        entry("upfirdn_blur", k2.SOURCE, "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
+              "torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C)",
+              **{**k2_gender, "launches": k2_gender["launches"] + k2_cars["launches"],
+                 "max_abs_err": max(k2_gender["max_abs_err"], k2_cars["max_abs_err"])},
+              launches_by_path={"gender": k2_gender["launches"],
+                                "cars": k2_cars["launches"]},
+              cars=k2_cars),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -8,16 +8,25 @@ an attribute of that name or to key `1_0_0` of the ModuleDict attribute
 `dec_cells`, and a flax list entry like `convs_3` to item 3 of the
 ModuleList attribute `convs`. Layouts change as flax -> torch needs:
 
-- convolution kernels HWIO -> OIHW (a depthwise (5,5,1,C) becomes (C,1,5,5));
+- convolution kernels HWIO -> OIHW (a depthwise (5,5,1,C) becomes (C,1,5,5),
+  a grouped (3,3,width/groups,width) becomes (width,width/groups,3,3), the
+  layout of nn.Conv2d(groups=groups));
 - Dense kernels (in, out) -> Linear weights (out, in);
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+- LayerNorm scale/bias -> weight/bias (same layout); the Style-Transformer's
+  Dense layers (`linear1`, `linear2`) are Dense kernels as above;
 - the NVAE's `const_prior` NHWC -> NCHW;
 - StyleGAN2: `EqualLinear.weight` (in, out) -> (out, in),
   `ModulatedConv2d.weight` HWIO -> OIHW, the generator's `const_input`
   (1, 4, 4, C) -> (1, C, 4, 4), `ToRGB.bias` (1, 1, 1, 3) -> (1, 3, 1, 1),
   the fixed `noise_{i}` maps (collection `noise`) (1, H, W, 1) -> (1, 1, H, W);
   `NoiseInjection.weight`, `activate_bias`, `PReLU.alpha` and `latent_avg`
-  (collection `buffers`) keep their layout.
+  (collection `buffers`) keep their layout;
+- Style-Transformer: the attention leaves `in_proj_weight` (3D, D),
+  `in_proj_bias`, `out_proj_weight` (D, D) and `out_proj_bias` are already in
+  torch's (out, in) layout and keep it (no Dense transpose), as do the
+  learned query `GradualStyleEncoder.z` (1, n_styles, 512) and
+  `StyleTransformer.latent_avg` (n_styles, 512; collection `buffers`).
 
 Every parameter and buffer of the module must be set exactly once, with the
 exact shape, or a ValueError says which one is wrong.
@@ -33,6 +42,7 @@ from torch import nn
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+_LN_LEAVES = {"scale": "weight", "bias": "bias"}
 
 
 def _child(module: nn.Module, name: str) -> nn.Module:
@@ -76,6 +86,12 @@ _MODULE_LEAVES = {
     ("StyledConv", "activate_bias"): _same,
     ("PReLU", "alpha"): _same,
     ("PSP", "latent_avg"): _same,
+    ("TorchMHA", "in_proj_weight"): _same,
+    ("TorchMHA", "in_proj_bias"): _same,
+    ("TorchMHA", "out_proj_weight"): _same,
+    ("TorchMHA", "out_proj_bias"): _same,
+    ("GradualStyleEncoder", "z"): _same,
+    ("StyleTransformer", "latent_avg"): _same,
 }
 
 
@@ -86,6 +102,8 @@ def _target(module: nn.Module, collection: str, names: tuple, leaf: str, arr: np
         owner = _child(owner, name)
     if isinstance(owner, nn.modules.batchnorm._BatchNorm):
         return owner, _BN_LEAVES[leaf], arr
+    if isinstance(owner, nn.LayerNorm):
+        return owner, _LN_LEAVES[leaf], arr
     if isinstance(owner, nn.Conv2d):
         if leaf == "kernel":
             return owner, "weight", arr.transpose(3, 2, 0, 1)

@@ -1,4 +1,5 @@
-"""The purify-based defense (counterpart of gen_adversarial_tpu/defenses/base.py):
+"""The defenses (counterpart of gen_adversarial_tpu/defenses/base.py): the
+bare classifier, and the purify-based defense: optional gaussian blur ->
 L2-ball gaussian noise (or the unconditional clamp at eps 0) -> optional
 (x - 0.5) / 0.5 -> purify -> optional * 0.5 + 0.5 -> classifier. Images are
 NHWC in [0, 1], as in the JAX package. The NVAE family purifies [0, 1]
@@ -8,13 +9,13 @@ families purify in [-1, 1] (normalize_before_purify=True).
 Random draws come from a `Draws` source (models/nvae/distributions.py): a
 `torch.Generator`, or recorded tensors replayed in order. One call draws the
 input noise first (NHWC, the image's shape; only when initial_noise_eps > 0),
-then the purifier's draws (the NVAE's eps, or the E4E mix noise). Gaussian
-blur, remat and compute_dtype are not used by the supported configurations
-and are not ported yet.
+then the purifier's draws (the NVAE's eps, or the StyleGAN2 mix noise).
+remat and compute_dtype are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 from typing import Any
 
@@ -22,7 +23,15 @@ import torch
 from torch import nn
 
 from gen_adversarial_tpu_torch.models.nvae.distributions import Draws, as_draws
+from gen_adversarial_tpu_torch.ops.blur import gaussian_blur2d
 from gen_adversarial_tpu_torch.ops.image import clamp01
+
+
+def blur_kernel_size(h: int) -> int:
+    """The reference's kernel size for an H-px image, 2**(sqrt(H) // 2) - 1
+    (31 at 128 px): most likely meant as log2(H) upstream, but the sizes it
+    gives are the ones the results were measured with, so it is kept."""
+    return int(2 ** (math.sqrt(h) // 2) - 1)
 
 
 def add_l2_gaussian_noise(x: torch.Tensor, eps: float, draws: Draws) -> torch.Tensor:
@@ -33,18 +42,41 @@ def add_l2_gaussian_noise(x: torch.Tensor, eps: float, draws: Draws) -> torch.Te
     return clamp01(x + noise * (eps / norm))
 
 
+class ClassifierDefense(nn.Module):
+    """The bare classifier (the 'base' and 'trades' defense types): draws
+    nothing, purifies nothing. The JAX factory runs it with EoT 1. The
+    ablations (defenses/ablations.py) are this with a `get_purified`."""
+
+    supports_shared_encode = False
+
+    def __init__(self, classifier: nn.Module, classifier_apply: Callable):
+        super().__init__()
+        self.classifier = classifier
+        self.classifier_apply = classifier_apply
+
+    def forward(self, x, draws=None, preds_only: bool = True):
+        purified = self.get_purified(x, draws)
+        logits = self.classifier_apply(purified).float()
+        return logits if preds_only else (logits, purified)
+
+    def get_purified(self, x, draws=None):
+        return x
+
+
 class MLVGMDefense(nn.Module):
     """purify-based defense.
 
     purify_encode(x) -> state and purify_decode(alphas, state, draws) ->
     purified are the halves of the purifier (defenses/purify.py); the encode
     half draws nothing, so with initial_noise_eps == 0 an EoT wrapper runs it
-    once for all draws (defenses/eot.py)."""
+    once for all draws (defenses/eot.py). apply_blur blurs the input with
+    the kernel size of an image_size image before the noise."""
 
     def __init__(self, purifier: nn.Module, classifier: nn.Module, alphas: torch.Tensor,
                  purify_encode: Callable, purify_decode: Callable,
                  classifier_apply: Callable, initial_noise_eps: float = 0.0,
-                 normalize_before_purify: bool = False):
+                 normalize_before_purify: bool = False, apply_blur: bool = False,
+                 image_size: int = 64):
         super().__init__()
         self.purifier = purifier
         self.classifier = classifier
@@ -54,6 +86,8 @@ class MLVGMDefense(nn.Module):
         self.classifier_apply = classifier_apply
         self.initial_noise_eps = initial_noise_eps
         self.normalize_before_purify = normalize_before_purify
+        self.apply_blur = apply_blur
+        self.image_size = image_size
 
     def _normalize(self, x):
         return (x - 0.5) / 0.5 if self.normalize_before_purify else x
@@ -62,6 +96,8 @@ class MLVGMDefense(nn.Module):
         return out * 0.5 + 0.5 if self.normalize_before_purify else out
 
     def preprocess(self, x, draws: Draws | None):
+        if self.apply_blur:
+            x = gaussian_blur2d(x, blur_kernel_size(self.image_size), 1.0)
         if self.initial_noise_eps > 0:
             return add_l2_gaussian_noise(x, self.initial_noise_eps, draws)
         # the reference adds its noise unconditionally: at eps 0 that is
@@ -89,12 +125,20 @@ class MLVGMDefense(nn.Module):
     def purified_from_state(self, state, draws):
         return self._denormalize(self.purify_decode(self.alphas, state, as_draws(draws)))
 
-    def state_call(self, state, draws):
-        return self.classifier_apply(self.purified_from_state(state, draws)).float()
+    def _classify(self, purified, preds_only):
+        logits = self.classifier_apply(purified).float()
+        return logits if preds_only else (logits, purified.float())
 
-    def forward(self, x, draws):
-        """x: (B, H, W, C) in [0, 1] -> logits (B, n_classes)."""
-        return self.classifier_apply(self.purified(x, draws)).float()
+    def state_call(self, state, draws, preds_only: bool = True):
+        return self._classify(self.purified_from_state(state, draws), preds_only)
+
+    def forward(self, x, draws, preds_only: bool = True):
+        """x: (B, H, W, C) in [0, 1] -> logits (B, n_classes), or
+        (logits, purified) with preds_only=False."""
+        return self._classify(self.purified(x, draws), preds_only)
+
+    def get_purified(self, x, draws):
+        return self.purified(x, draws).float()
 
 
 def make_classifier_apply(model: nn.Module, mean: float | None = 0.5,

@@ -1,19 +1,27 @@
-"""Purify halves of the NVAE and E4E families (counterpart of
-`make_nvae_purify_split`, `_mix_codes` and `make_e4e_purify_split` in
+"""Purify halves of the NVAE, E4E and Style-Transformer families
+(counterpart of `make_nvae_purify_split`, `_mix_codes`,
+`make_e4e_purify_split` and `make_trans_purify_split` in
 gen_adversarial_tpu/defenses/purify.py). Each returns
     encode(x) -> state, decode(alphas, state, draws) -> purified
 on NHWC images, with purify = decode(encode(x)) by construction; the encode
-half draws nothing. The Style-Transformer family comes with its slice."""
+half draws nothing."""
 
 from __future__ import annotations
 
 from collections.abc import Callable
 
 import torch
+import torch.nn.functional as F
 
 from gen_adversarial_tpu_torch.models.e4e.psp import PSP
 from gen_adversarial_tpu_torch.models.nvae.distributions import Draws
 from gen_adversarial_tpu_torch.models.nvae.model import NVAE
+from gen_adversarial_tpu_torch.models.style_transformer.model import StyleTransformer
+from gen_adversarial_tpu_torch.ops.image import resize_bilinear
+
+# the Style-Transformer's letterbox: the cars images fill rows 32:-32 of the
+# 256 x 256 frame the generator was trained on
+LETTERBOX = 32
 
 
 def make_nvae_purify_split(model: NVAE, temperature: float = 0.6):
@@ -45,10 +53,34 @@ def make_e4e_purify_split(model: PSP):
     pooled to 256 x 256."""
 
     def encode(x):
-        return model.encode(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        return model.encode(_nchw(x))
 
     def decode(alphas, codes, draws):
         codes = _mix_codes(draws, model.style, codes, alphas, 1.0)
         return model.decode(codes).permute(0, 2, 3, 1)
+
+    return encode, decode
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def make_trans_purify_split(model: StyleTransformer):
+    """Style-Transformer purify on NHWC images in [-1, 1]: resize to 256
+    (half-pixel bilinear, no antialias), crop the letterbox rows, encode |
+    mix each code with a style of N(0, 0.8^2) -> decode (pooled to 256) ->
+    set the letterbox rows to -1 -> resize to 128."""
+
+    def encode(x):
+        x = resize_bilinear(_nchw(x), 256, 256)
+        return model.encode(x[:, :, LETTERBOX:-LETTERBOX].contiguous(
+            memory_format=torch.channels_last))
+
+    def decode(alphas, codes, draws):
+        codes = _mix_codes(draws, model.style, codes, alphas, 0.8)
+        images = model.decode(codes)[:, :, LETTERBOX:-LETTERBOX]
+        images = F.pad(images, (0, 0, LETTERBOX, LETTERBOX), value=-1.0)
+        return resize_bilinear(images, 128, 128).permute(0, 2, 3, 1)
 
     return encode, decode

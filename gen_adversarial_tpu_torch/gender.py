@@ -15,6 +15,7 @@ made on the host).
 
 from __future__ import annotations
 
+import math
 from collections.abc import Sequence
 
 import numpy as np
@@ -38,23 +39,29 @@ IMAGE_SIZE = 256
 RESNET50_LAYERS = (3, 4, 6, 3)
 
 
-def gender_alphas(n_latent: int = len(GENDER_ALPHAS)) -> np.ndarray:
-    """The config's 18 alphas times the attenuation; for a smaller generator
-    (a rehearsal) the same schedule resampled to its n_latent codes."""
-    a = np.asarray(GENDER_ALPHAS, np.float32)
+def resampled_alphas(alphas, attenuation: float, n_latent: int) -> np.ndarray:
+    """A config's alphas times its attenuation; for a smaller generator (a
+    rehearsal) the same schedule resampled to its n_latent codes."""
+    a = np.asarray(alphas, np.float32)
     if n_latent != len(a):
         a = np.interp(np.linspace(0, len(a) - 1, n_latent), np.arange(len(a)), a)
-    return (a * ALPHA_ATTENUATION).astype(np.float32)
+    return (a * attenuation).astype(np.float32)
+
+
+def gender_alphas(n_latent: int = len(GENDER_ALPHAS)) -> np.ndarray:
+    return resampled_alphas(GENDER_ALPHAS, ALPHA_ATTENUATION, n_latent)
 
 
 @torch.no_grad()
-def _init_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
-                  generator: torch.Generator) -> None:
-    """StyleGAN2 / E4E tensors at the scales their own inits use: equalized
-    weights at unit variance (the style MLP's at 1 / lr_mul), the constant
-    input and the noise maps N(0, 1), modulation biases near their init 1;
-    PReLU slopes near 0.25; codes' latent_avg N(0, 1). Everything else as
-    the flagship's init (flagship.init_tensor_)."""
+def init_stylegan_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
+                          generator: torch.Generator) -> None:
+    """StyleGAN2 / E4E / Style-Transformer tensors at the scales their own
+    inits use: equalized weights at unit variance (the style MLP's at
+    1 / lr_mul), the constant input and the noise maps N(0, 1), modulation
+    biases near their init 1; PReLU slopes near 0.25; codes' latent_avg and
+    the learned query z N(0, 1); attention projections N(0, 1 / fan_in) with
+    biases N(0, 0.01^2). Everything else (LayerNorm as BatchNorm) as the
+    flagship's init (flagship.init_tensor_)."""
     kind = type(mod).__name__
     if kind == "EqualLinear" and name == "weight":
         t.normal_(0.0, 1.0 / mod.lr_mul, generator=generator)
@@ -68,8 +75,12 @@ def _init_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
         t.normal_(0.0, 0.1, generator=generator)
     elif kind == "PReLU":
         t.normal_(0.25, 0.01, generator=generator)
-    elif kind == "PSP":  # latent_avg
+    elif kind in ("PSP", "StyleTransformer", "GradualStyleEncoder"):  # latent_avg, z
         t.normal_(0.0, 1.0, generator=generator)
+    elif kind == "TorchMHA" and t.dim() == 2:
+        t.normal_(0.0, 1.0 / math.sqrt(t.shape[1]), generator=generator)
+    elif kind == "TorchMHA":
+        t.normal_(0.0, 0.01, generator=generator)
     else:
         init_tensor_(mod, name, t, generator)
 
@@ -86,7 +97,7 @@ def gender_defense(initial_noise_eps: float = INITIAL_NOISE_EPS, device="cuda",
         psp = PSP(stylegan_size, device="meta")
         clf = ResNetBackbone(N_CLASSES, layers=classifier_layers, device="meta")
     generator = torch.Generator(device=device).manual_seed(seed)
-    psp = random_init_(psp.to_empty(device=device), generator, _init_tensor_)
+    psp = random_init_(psp.to_empty(device=device), generator, init_stylegan_tensor_)
     clf = random_init_(clf.to_empty(device=device), generator)
     psp = psp.requires_grad_(False).to(memory_format=torch.channels_last)
     clf = clf.requires_grad_(False).to(memory_format=torch.channels_last)

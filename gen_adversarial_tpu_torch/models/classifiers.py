@@ -1,11 +1,11 @@
-"""VGG11-BN and ResNet50 with the reference's projector head, on NCHW
-tensors (counterpart of `VGG11BN`, `ResNetBackbone`, `ResNet50` and
-`Projector` in gen_adversarial_tpu/models/classifiers.py), built in eval mode.
+"""VGG11-BN, ResNet50 and ResNeXt50-32x4d with the reference's projector
+head, on NCHW tensors (counterpart of `VGG11BN`, `ResNetBackbone`,
+`ResNet50`, `ResNeXt50` and `Projector` in
+gen_adversarial_tpu/models/classifiers.py), built in eval mode.
 
 Submodule names follow the JAX variable tree (`conv0`, `bn0`, ...,
 `classifier.fc0/bn/fc1`; `layer2_0.downsample_conv`, `fc.fc0`) so
-`core/convert.py` maps weights by name. ResNeXt50 (grouped 3x3 convolutions)
-serves the cars family and comes with its slice.
+`core/convert.py` maps weights by name.
 """
 
 from __future__ import annotations
@@ -68,15 +68,18 @@ class VGG11BN(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """torchvision ResNet Bottleneck: 1x1 -> 3x3 (the stride is here) -> 1x1,
-    with a strided 1x1 + BN shortcut when the shape changes."""
+    """torchvision ResNet Bottleneck: 1x1 -> 3x3 (the stride and the groups
+    are here) -> 1x1, with a strided 1x1 + BN shortcut when the shape
+    changes."""
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1, device=None):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, groups: int = 1,
+                 base_width: int = 64, device=None):
         super().__init__()
-        width, out_ch = planes, planes * 4
+        width, out_ch = int(planes * (base_width / 64.0)) * groups, planes * 4
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False, device=device)
         self.bn1 = nn.BatchNorm2d(width, eps=1e-5, device=device)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, bias=False, device=device)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, groups=groups,
+                               bias=False, device=device)
         self.bn2 = nn.BatchNorm2d(width, eps=1e-5, device=device)
         self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False, device=device)
         self.bn3 = nn.BatchNorm2d(out_ch, eps=1e-5, device=device)
@@ -96,9 +99,11 @@ class Bottleneck(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """ResNet-50 family with the projector head: 7x7/2 stem, 3x3/2 max pool
-    (padding 1), four stages of bottlenecks (`layers` of them), global mean."""
+    (padding 1), four stages of bottlenecks (`layers` of them), global mean;
+    groups / base_width (32, 4) give ResNeXt50-32x4d."""
 
-    def __init__(self, n_classes: int, layers: Sequence[int] = (3, 4, 6, 3), device="cuda"):
+    def __init__(self, n_classes: int, layers: Sequence[int] = (3, 4, 6, 3),
+                 groups: int = 1, base_width: int = 64, device="cuda"):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False, device=device)
         self.bn1 = nn.BatchNorm2d(64, eps=1e-5, device=device)
@@ -108,8 +113,9 @@ class ResNetBackbone(nn.Module):
             planes = 64 * 2 ** stage
             for i in range(n_blocks):
                 name = f"layer{stage + 1}_{i}"
-                self.add_module(name, Bottleneck(in_ch, planes, 2 if stage > 0 and i == 0
-                                                 else 1, device=device))
+                stride = 2 if stage > 0 and i == 0 else 1
+                self.add_module(name, Bottleneck(in_ch, planes, stride, groups, base_width,
+                                                 device=device))
                 self.blocks.append(name)
                 in_ch = planes * 4
         self.fc = Projector(in_ch, n_classes, device=device)
@@ -125,3 +131,4 @@ class ResNetBackbone(nn.Module):
 
 
 ResNet50 = partial(ResNetBackbone, layers=(3, 4, 6, 3))
+ResNeXt50 = partial(ResNetBackbone, layers=(3, 4, 6, 3), groups=32, base_width=4)

@@ -1,10 +1,10 @@
 """Where a defense call's time goes on the GPU: one torch.profiler trace of
-the EoT-32 call of the ids flagship (batch 4, initial noise eps 2.0) or of
-the gender defense (batch 2 at 256 px, initial noise eps 4.0), float32,
-random weights from seed 0: one warm-up call, 2 calls untraced, then 2 calls
-traced.
+the EoT-32 call of the ids flagship (batch 4, initial noise eps 2.0), of
+the gender defense (batch 2 at 256 px, initial noise eps 4.0) or of the cars
+defense (batch 4 at 128 px, initial noise eps 4.0), float32, random weights
+from seed 0: one warm-up call, 2 calls untraced, then 2 calls traced.
 
-    python3 -m gen_adversarial_tpu_torch.profile_flagship [--family ids|gender]
+    python3 -m gen_adversarial_tpu_torch.profile_flagship [--family ids|gender|cars]
 
 Prints one JSON line: the card (name and power limit as nvidia-smi gives
 them), the host wall time of the same number of calls untraced and traced
@@ -44,7 +44,7 @@ def kind_of(name: str) -> str:
 CALLS = 2
 SEED = 0
 # family -> (batch, image size, initial noise eps)
-FAMILIES = {"ids": (4, 64, 2.0), "gender": (2, 256, 4.0)}
+FAMILIES = {"ids": (4, 64, 2.0), "gender": (2, 256, 4.0), "cars": (4, 128, 4.0)}
 
 
 def main(argv=None) -> int:
@@ -58,6 +58,7 @@ def main(argv=None) -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
+    from gen_adversarial_tpu_torch.cars import cars_defense
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import flagship
     from gen_adversarial_tpu_torch.gender import gender_defense
@@ -68,7 +69,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30)
     dev = torch.device("cuda")
-    make = flagship if family == "ids" else gender_defense
+    make = {"ids": flagship, "gender": gender_defense, "cars": cars_defense}[family]
     defense = make(initial_noise_eps=eps, device=dev, seed=SEED)
     net = eot_wrap(defense, eot_steps=32)
     images = torch.rand(batch, size, size, 3, device=dev,

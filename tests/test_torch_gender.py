@@ -34,7 +34,8 @@ from gen_adversarial_tpu_torch.gender import GENDER_ALPHAS, gender_alphas, gende
 from gen_adversarial_tpu_torch.models.classifiers import ResNet50, ResNetBackbone
 from gen_adversarial_tpu_torch.models.e4e.psp import PSP
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
-from tests.torch_port_helpers import load_port, random_variables, rel_err, to_nchw
+from tests.torch_port_helpers import (
+    keyed_normal_call, load_port, random_variables, rel_err, to_nchw)
 
 REPO = Path(__file__).resolve().parent.parent
 SIZE = 32
@@ -86,44 +87,20 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
     """The JAX and the port gender defense (MLVGMDefense + the E4E split +
     eot_wrap, normalize_before_purify) with the same numpy draws. JAX draws
     inside a vmap over keys, so `jax_call(fn)` runs fn with jax.random.normal
-    looking the draw's key up in a table of the numpy draws; the port replays
+    looking the draw's key up in a table of the numpy draws
+    (keyed_normal_call); the port replays
     the same draws folded into its batch, draw-major (the mix noise
     (n_codes, B, 512) on its batch axis 1), chunk by chunk. `float64` gives
     the JAX side float64 variables (build and call it inside
-    jax.enable_x64(True)). Returns (jax_net(x), jax_call, port_net(x))."""
+    jax.enable_x64(True)). Returns (jax_net(defense, x), the JAX defense,
+    jax_call, port_net(x)): jax_net takes the defense as an argument, so a
+    jit of it compiles the weights as inputs, not as constants."""
     n_codes = 8
     rng = np.random.RandomState(6)
     noise = [rng.standard_normal((B, IMAGE, IMAGE, 3)).astype(np.float32) for _ in range(eot)]
     mix = [rng.standard_normal((n_codes, B, 512)).astype(np.float32) for _ in range(eot)]
     key = jax.random.PRNGKey(7)
-
-    tables = {}
-    for d, kd in enumerate(jax.random.split(key, eot)):
-        k_noise, k_purify = jax.random.split(kd)
-        for k, v in ((k_noise, noise[d]), (k_purify, mix[d])):
-            keys, vals = tables.setdefault(v.shape, ([], []))
-            keys.append(np.asarray(k))
-            vals.append(v)
-    tables = {s: (jnp.asarray(np.stack(k)), jnp.asarray(np.stack(v)))
-              for s, (k, v) in tables.items()}
-    real_normal = jax.random.normal
-
-    def fake_normal(k, shape=(), dtype=jnp.float32):
-        if tuple(shape) not in tables:
-            # flax checks a parameter's shape by evaluating its init (the
-            # StyleGAN inits draw normals); that is no draw of the defense
-            return real_normal(k, shape, dtype)
-        keys, vals = tables[tuple(shape)]
-        match = jnp.all(keys == k, axis=-1)
-        # a key that is not in the table gives NaN, and the test fails
-        return jnp.where(jnp.any(match), vals[jnp.argmax(match)], jnp.nan).astype(dtype)
-
-    def jax_call(fn):
-        jax.random.normal = fake_normal
-        try:
-            return fn()
-        finally:
-            jax.random.normal = real_normal
+    jax_call = keyed_normal_call(key, [(noise[d], mix[d]) for d in range(eot)])
 
     cast = (lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)) if float64 else (
         lambda t: t)
@@ -135,7 +112,6 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
         purify_encode_apply=enc, purify_decode_apply=dec,
         classifier_apply=jax_classifier_apply(models["jclf"]), image_size=IMAGE,
         initial_noise_eps=noise_eps, normalize_before_purify=True)
-    jnet = jax_eot_wrap(jdef, eot_steps=eot, chunk=chunk)
 
     per = chunk or eot
     draws = []
@@ -150,17 +126,17 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
         make_classifier_apply(models["tclf"]), initial_noise_eps=noise_eps,
         normalize_before_purify=True)
     tnet = eot_wrap(tdef, eot_steps=eot, chunk=chunk)
-    return ((lambda x: jnet(key, x)), jax_call,
-            (lambda x: tnet(x, [torch.tensor(d) for d in draws])))
+    return ((lambda d, x: jax_eot_wrap(d, eot_steps=eot, chunk=chunk)(key, x)), jdef,
+            jax_call, (lambda x: tnet(x, [torch.tensor(d) for d in draws])))
 
 
 @pytest.mark.parametrize("noise_eps,chunk", [(4.0, None), (0.0, None), (4.0, 2)])
 def test_gender_defense_matches_jax(models, noise_eps, chunk):
     """MLVGMDefense + the E4E split + eot_wrap, EoT 4, every draw made by
     numpy on both sides (see _gender_pair)."""
-    jnet, jax_call, tnet = _gender_pair(models, noise_eps, chunk)
+    jnet, jdef, jax_call, tnet = _gender_pair(models, noise_eps, chunk)
     x = _images(5)
-    want = jax_call(lambda: jnet(jnp.asarray(x)))
+    want = jax_call(lambda: jax.jit(jnet)(jdef, jnp.asarray(x)))
     with torch.no_grad():
         got = tnet(torch.tensor(x))
     assert np.all(np.isfinite(np.asarray(want)))
@@ -181,17 +157,18 @@ def test_gender_defense_input_gradient_matches_jax(models):
     g = np.random.RandomState(9).randn(B, 2).astype(np.float32)
 
     def jax_grad(float64):
-        jnet, jax_call, _ = _gender_pair(models, 4.0, None, float64=float64)
+        jnet, jdef, jax_call, _ = _gender_pair(models, 4.0, None, float64=float64)
         # the defense returns float32 logits either way (its last cast)
         xs = jnp.asarray(x.astype(np.float64 if float64 else np.float32))
-        return np.asarray(jax_call(lambda: jax.vjp(jnet, xs)[1](jnp.asarray(g))[0]))
+        grad = jax.jit(lambda d, v, c: jax.vjp(lambda u: jnet(d, u), v)[1](c)[0])
+        return np.asarray(jax_call(lambda: grad(jdef, xs, jnp.asarray(g))))
 
     want = jax_grad(False)
     with jax.enable_x64(True):
         want64 = jax_grad(True)
     assert want64.dtype == np.float64
     gap = rel_err(want, want64)
-    _, _, tnet = _gender_pair(models, 4.0, None)
+    *_, tnet = _gender_pair(models, 4.0, None)
     _, vjp_fn = vjp(tnet, torch.tensor(x))
     (got,) = vjp_fn(torch.tensor(g))
     assert np.all(np.isfinite(want)) and np.abs(want).max() > 0

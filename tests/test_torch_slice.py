@@ -263,6 +263,8 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "models/stylegan2/layers.py", "models/stylegan2/generator.py",
     "models/e4e/encoder.py", "models/e4e/psp.py", "defenses/purify.py",
     "defenses/base.py", "models/classifiers.py", "core/convert.py", "gender.py",
+    "models/style_transformer/encoder.py", "models/style_transformer/model.py", "cars.py",
+    "ops/blur.py", "defenses/ablations.py",
 ]
 
 

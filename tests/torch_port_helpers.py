@@ -68,3 +68,46 @@ def rel_err(got, want) -> float:
     """max |got - want| over max |want|, in float64."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def keyed_normal_call(key, per_draw):
+    """Replays numpy draws into a JAX defense that draws inside a vmap over
+    `jax.random.split(key, len(per_draw))`, splitting each draw's key into
+    (k_noise, k_purify) as MLVGMDefense does. per_draw[d] is the pair
+    (input noise, purifier draw) of draw d, either None where that key draws
+    nothing; a key is looked up in a table of these keys by the shape asked
+    for.
+
+    Returns jax_call(fn): fn() run with jax.random.normal swapped for the
+    lookup, restored afterwards. A key that is not in the table gives NaN,
+    and the test fails; a shape that is not in it falls through to the real
+    normal (flax checks some parameter shapes by evaluating their inits)."""
+    import jax.numpy as jnp
+
+    tables = {}
+    for d, kd in enumerate(jax.random.split(key, len(per_draw))):
+        for k, v in zip(jax.random.split(kd), per_draw[d]):
+            if v is None:
+                continue
+            keys, vals = tables.setdefault(v.shape, ([], []))
+            keys.append(np.asarray(k))
+            vals.append(v)
+    tables = {s: (jnp.asarray(np.stack(k)), jnp.asarray(np.stack(v)))
+              for s, (k, v) in tables.items()}
+    real_normal = jax.random.normal
+
+    def fake_normal(k, shape=(), dtype=jnp.float32):
+        if tuple(shape) not in tables:
+            return real_normal(k, shape, dtype)
+        keys, vals = tables[tuple(shape)]
+        match = jnp.all(keys == k, axis=-1)
+        return jnp.where(jnp.any(match), vals[jnp.argmax(match)], jnp.nan).astype(dtype)
+
+    def jax_call(fn):
+        jax.random.normal = fake_normal
+        try:
+            return fn()
+        finally:
+            jax.random.normal = real_normal
+
+    return jax_call
