@@ -22,7 +22,14 @@ Each path is then rehearsed small on the GPU and on the CPU with the same
 weights and draws. Phase `grad` takes input gradients the way the attacks
 will (torch.func.vjp, then vmap over the one-hot class cotangents) through
 the three small defenses on the GPU and the CPU, and one input gradient of
-the full ids flagship, timed, with its peak memory. Every phase prints one JSON
+the full ids flagship, timed, with its peak memory. Then the attacks
+(gen_adversarial_tpu_torch/attacks): `attacks_parity` runs each of them a
+few steps through a small ids defense with frozen draws on the GPU and the
+CPU (FAB over 100 classes), and the staged AutoAttack against the
+monolithic one on the GPU; `attack_flagship` runs DeepFool and APGD-CE a
+few steps on the full ids flagship (EoT-32), through K1; `attack_remat`
+runs APGD-CE on the full gender defense and one input gradient of the full
+cars defense, both with remat, through K2. Every phase prints one JSON
 line with its elapsed seconds;
 the second-to-last line summarises the kernels, and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -72,6 +79,24 @@ CARS_EOT_CHUNK = None
 # K2 at the cars shapes: its plain version and the library call are timed at
 # fewer launches (each is ~0.1-0.3 s at the 512-px shape)
 CARS_SLOW_REPS = 5
+# the attacks, GPU vs CPU on a small defense (phase `attacks_parity`): a few
+# steps of each; bounds (relative) and adversarial images (absolute, in
+# [0, 1]) after steps that each take a float32 input gradient
+ATTACK_TOL = 1e-3
+# the attacks on the full flagship (phase `attack_flagship`): batch 4,
+# DeepFool's 8 class cotangents in blocks of 4 (the backward's live memory)
+ATTACK_BATCH = 4
+ATTACK_DF_ITERS = 2
+ATTACK_APGD_ITERS = 4
+ATTACK_COT_CHUNK = 4
+# APGD-CE on the full gender defense and one input gradient of the full
+# cars defense, remat on (phase `attack_remat`); the EoT draws in chunks of
+# 4, so that a backward recomputes one chunk's purify at a time
+REMAT_APGD_ITERS = 2
+REMAT_EOT_CHUNK = 4
+# the small gender defense's class gradients with remat on against off, on
+# cuDNN's deterministic algorithms: the recompute replays the same draws
+REMAT_RTOL = 1e-5
 
 T0 = time.monotonic()
 
@@ -244,7 +269,7 @@ def main() -> int:
     flag = run_phase("flagship", flagship_phase)
     torch.cuda.empty_cache()  # the flagship's weights went with its phase
 
-    def small_ids():
+    def small_ids(n_classes=10):
         """A small ids defense on the CPU and the same weights on the GPU,
         with EoT-4 draws and images from a numpy seed."""
         import numpy as np
@@ -253,7 +278,7 @@ def main() -> int:
                          num_cells_per_group=1, num_latent_per_group=4, num_mixtures=3)
         plan = (16, "M", 32, "M")
         eot, b = 4, 2
-        kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=plan, n_classes=10)
+        kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=plan, n_classes=n_classes)
         cpu = flagship(device="cpu", **kw)
         gpu = flagship(device=dev, **kw)
         gpu.load_state_dict(cpu.state_dict())
@@ -409,7 +434,9 @@ def main() -> int:
         with EoT-4 draws and 64-px images from a numpy seed."""
         import numpy as np
         size, eot, b, image, n_codes = 32, 4, 2, 64, 8
-        kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1))
+        # remat off: phase `grad` differentiates it with torch.func, which
+        # refuses torch.utils.checkpoint
+        kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1), remat=False)
         cpu = gender_defense(device="cpu", **kw)
         gpu = gender_defense(device=dev, **kw)
         gpu.load_state_dict(cpu.state_dict())
@@ -504,7 +531,7 @@ def main() -> int:
         import numpy as np
         size, n_codes, image = 32, 8, cars.IMAGE_SIZE
         kw = dict(initial_noise_eps=eps, seed=3, output_size=size,
-                  classifier_layers=(1, 1, 1, 1))
+                  classifier_layers=(1, 1, 1, 1), remat=False)  # as small_gender's
         cpu = cars.cars_defense(device="cpu", **kw)
         gpu = cars.cars_defense(device=dev, **kw)
         gpu.load_state_dict(cpu.state_dict())
@@ -635,6 +662,220 @@ def main() -> int:
         return out
 
     run_phase("grad", grad_phase)
+    torch.cuda.empty_cache()
+
+    from gen_adversarial_tpu_torch import attacks
+    from gen_adversarial_tpu_torch.core.config import ATTACK_SUITES
+
+    def attack_errors(got, want):
+        """GPU result against the CPU's: the bounds' largest relative
+        difference (inf where both failed), the adversarial images' largest
+        absolute one."""
+        gs, gb, ga = (t.cpu() for t in got[:3])
+        ws, wb, wa = want[:3]
+        if not torch.equal(gs, ws) or not torch.equal(torch.isinf(gb), torch.isinf(wb)):
+            raise RuntimeError(f"GPU and CPU attacks disagree on success {gs.tolist()} vs "
+                               f"{ws.tolist()} or bounds {gb.tolist()} vs {wb.tolist()}")
+        fin = torch.isfinite(wb)
+        bound_err = ((gb[fin] - wb[fin]).abs() / wb[fin].abs().clamp(min=1.0)).max().item() \
+            if fin.any() else 0.0
+        return bound_err, (ga - wa).abs().max().item()
+
+    def attacks_parity_phase():
+        # every attack through the small ids defense over 100 classes (FAB's
+        # class jacobian at the flagship's class count), its draws frozen:
+        # every call replays the same recorded draws, so the GPU and the CPU
+        # attack the same deterministic function; a few steps each. The
+        # AutoAttack ensemble is these APGD and FAB runs at fixed lengths
+        # (64 and 128 steps), merged: the CPU tests hold the merge, and the
+        # end of this phase runs both ensembles on the card
+        cpu, gpu, x, draws, eot, _ = small_ids(n_classes=100)
+        nets = {d: (lambda v, _, net=eot_wrap(m, eot): net(v, draws))
+                for d, m in (("cpu", cpu), ("gpu", gpu))}
+        with torch.no_grad():
+            labels = nets["cpu"](x, None).argmax(1)
+        start = torch.randn(x.shape, generator=torch.Generator().manual_seed(8))
+        s = ATTACK_SUITES["ids"]
+        runs = {
+            "fgsm": lambda net, v, y, g: attacks.fgsm_attack(net, v, y, g, 1.0),
+            "deepfool": lambda net, v, y, g: attacks.deepfool_attack(
+                net, v, y, g, num_classes=s.deepfool_num_classes,
+                overshoot=s.deepfool_overshoot, max_iter=3),
+            "cw": lambda net, v, y, g: attacks.cw_attack(
+                net, v, y, [start], c=s.cw_c, kappa=s.cw_kappa, steps=4, lr=s.cw_lr,
+                early_stopping_steps=s.cw_early_stopping_steps),
+            "apgd_ce": lambda net, v, y, g: attacks.apgd_attack(net, v, y, [start], 4, 0.75,
+                                                                4.0, True),
+            "apgd_dlr": lambda net, v, y, g: attacks.apgd_attack(net, v, y, [start], 4, 0.75,
+                                                                 4.0, False),
+            "fab": lambda net, v, y, g: attacks.fab_attack(net, v, y, g, n_iter=2),
+        }
+        reset_counts()  # counts from here on are this phase's
+        out = {"classes": 100, "eot_steps": eot, "batch": x.shape[0], "tol": ATTACK_TOL}
+        for name, run in runs.items():
+            t = time.monotonic()
+            want = run(nets["cpu"], x, labels, torch.Generator())
+            cpu_s = time.monotonic() - t
+            before = k1.launches
+            t = time.monotonic()
+            got = run(nets["gpu"], x.to(dev), labels.to(dev), torch.Generator(device=dev))
+            torch.cuda.synchronize()
+            gpu_s = time.monotonic() - t
+            bound_err, adv_err = attack_errors(got, want)
+            if bound_err > ATTACK_TOL or adv_err > ATTACK_TOL:
+                raise RuntimeError(f"{name}, GPU vs CPU: bounds {bound_err}, adversarial images "
+                                   f"{adv_err} > {ATTACK_TOL}")
+            out[name] = {"success": want[0].tolist(), "bound_rel_err": bound_err,
+                         "adv_abs_err": adv_err, "k1_launches": k1.launches - before,
+                         "gpu_s": gpu_s, "cpu_s": cpu_s}
+        if k1.launches == 0:
+            raise RuntimeError("the GPU attacks did not go through K1")
+        out["k1_launches"] = k1.launches
+        # AutoAttack on the card: the staged ensemble, which skips stages
+        # whose samples are all solved, against the monolithic one on a
+        # linear net of a noisy input with a CUDA generator (every stage
+        # draws from a generator of its own, split from the attack's)
+        w = torch.randn(4 * 4 * 3, 5, device=dev, generator=gen)
+        noisy = lambda v, d: (v + 0.01 * d.normal(v.shape, v)).reshape(v.shape[0], -1) @ w
+        v = torch.rand(4, 4, 4, 3, device=dev, generator=gen)
+        y = (v.reshape(4, -1) @ w).argmax(1)
+        t = time.monotonic()
+        mono = attacks.autoattack(noisy, v, y, torch.Generator(device=dev).manual_seed(12),
+                                  n_classes=5)
+        staged = attacks.make_staged_autoattack(5)(noisy, v, y,
+                                                   torch.Generator(device=dev).manual_seed(12))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(mono, staged)):
+            raise RuntimeError("the staged AutoAttack differs from the monolithic one on the card")
+        out["autoattack_staged_vs_monolithic"] = {"equal": True, "success": mono[0].tolist(),
+                                                  "seconds": time.monotonic() - t}
+        return out
+
+    attack_parity = run_phase("attacks_parity", attacks_parity_phase)
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        """fn() with its seconds and peak memory, from a synchronized start."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.monotonic() - t, torch.cuda.max_memory_allocated() / 2**30
+
+    def check_attack(name, res, batch):
+        success, bound, adv = res[:3]
+        # DeepFool's bound is inf for a sample it did not move across (the
+        # reference's marker); every other bound is finite
+        bad = torch.isnan(bound) | (torch.isinf(bound) & success)
+        if tuple(adv.shape[:1]) != (batch,) or bad.any() or not torch.isfinite(adv).all():
+            raise RuntimeError(f"{name}: success {success.tolist()}, bounds {bound.tolist()}, "
+                               f"adversarial images finite {bool(torch.isfinite(adv).all())}")
+        # JSON has no inf: null stands for it
+        return {"success": success.tolist(),
+                "bounds": [b if math.isfinite(b) else None for b in bound.tolist()]}
+
+    def attack_flagship_phase():
+        # the full ids flagship (EoT-32, batch 4) under the ids suite's
+        # DeepFool (8 classes, max_iter cut to ATTACK_DF_ITERS) and APGD-CE at
+        # AutoAttack's first bound for ATTACK_APGD_ITERS steps
+        defense = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+        net = eot_wrap(defense, eot_steps=EOT_STEPS)
+        images = torch.rand(ATTACK_BATCH, 64, 64, 3, device=dev, generator=gen)
+        with torch.no_grad():
+            labels = net(images, torch.Generator(device=dev).manual_seed(6)).argmax(1)
+        s = ATTACK_SUITES["ids"]
+        out = {"batch": ATTACK_BATCH, "eot_steps": EOT_STEPS, "initial_noise_eps": 2.0}
+        reset_counts()  # counts from here on are this path's
+        res, sec, peak = timed(lambda: attacks.deepfool_attack(
+            net, images, labels, torch.Generator(device=dev).manual_seed(7),
+            num_classes=s.deepfool_num_classes, overshoot=s.deepfool_overshoot,
+            max_iter=ATTACK_DF_ITERS, return_iters=True, cotangent_chunk=ATTACK_COT_CHUNK))
+        out["deepfool"] = {**check_attack("deepfool", res, ATTACK_BATCH),
+                           "classes": s.deepfool_num_classes, "iters": res[3],
+                           "cotangent_chunk": ATTACK_COT_CHUNK, "seconds": sec,
+                           "s_per_iter": sec / max(res[3], 1), "max_memory_allocated_gb": peak,
+                           "k1_launches": k1.launches}
+        before = k1.launches
+        res, sec, peak = timed(lambda: attacks.apgd_attack(
+            net, images, labels, torch.Generator(device=dev).manual_seed(8),
+            ATTACK_APGD_ITERS, 0.75, 0.5, True))
+        out["apgd_ce"] = {**check_attack("apgd_ce", res, ATTACK_BATCH), "iters": ATTACK_APGD_ITERS,
+                          "max_bound": 0.5, "seconds": sec,
+                          "s_per_iter": sec / (ATTACK_APGD_ITERS + 1),
+                          "max_memory_allocated_gb": peak, "k1_launches": k1.launches - before}
+        if k1.launches == 0 or out["apgd_ce"]["k1_launches"] == 0:
+            raise RuntimeError(f"the flagship attacks launched K1 {k1.launches} times")
+        out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+        return out
+
+    attack_flag = run_phase("attack_flagship", attack_flagship_phase)
+    torch.cuda.empty_cache()
+
+    def attack_remat_phase():
+        # remat on, as the gender and cars factories set it: APGD-CE on the
+        # full gender defense (batch 2, EoT-32 in chunks of REMAT_EOT_CHUNK),
+        # then one input gradient of the full cars defense (batch 4, EoT-32)
+        out = {"eot_steps": EOT_STEPS, "eot_chunk": REMAT_EOT_CHUNK}
+        # first, remat on the card: the small gender defense's class
+        # gradients with remat on and off, from a CUDA generator seeded alike
+        _, small, x, _, eot, _ = small_gender()
+        grads = {}
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            for remat in (False, True):
+                small.remat = remat
+                grads[remat] = attacks.class_grads(
+                    eot_wrap(small, eot), x.to(dev), torch.Generator(device=dev).manual_seed(11))[1]
+        err = rel_err(grads[True], grads[False])
+        if not math.isfinite(err) or err > REMAT_RTOL:
+            raise RuntimeError(f"small gender class gradients, remat on vs off: {err} > {REMAT_RTOL}")
+        out["small_gender_remat_vs_plain"] = {"rel_err": err, "tol": REMAT_RTOL}
+        del small, grads
+
+        defense = gender_defense(device=dev, seed=0)
+        if not defense.remat:
+            raise RuntimeError("the gender factory left remat off")
+        net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=REMAT_EOT_CHUNK)
+        images = torch.rand(GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev, generator=gen)
+        labels = torch.arange(GENDER_BATCH, device=dev) % 2
+        reset_counts()  # counts from here on are this path's
+        res, sec, peak = timed(lambda: attacks.apgd_attack(
+            net, images, labels, torch.Generator(device=dev).manual_seed(9),
+            REMAT_APGD_ITERS, 0.75, 0.5, True))
+        out["gender_apgd_ce"] = {
+            **check_attack("gender apgd_ce", res, GENDER_BATCH), "batch": GENDER_BATCH,
+            "iters": REMAT_APGD_ITERS, "max_bound": 0.5, "seconds": sec,
+            "s_per_gradient": sec / (REMAT_APGD_ITERS + 1), "max_memory_allocated_gb": peak,
+            "k2_launches": k2.launches, "k1_launches": k1.launches}
+        if k2.launches == 0:
+            raise RuntimeError("the gender attack did not go through K2")
+        del defense, net, res
+        torch.cuda.empty_cache()
+
+        defense = cars.cars_defense(device=dev, seed=0)
+        net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=REMAT_EOT_CHUNK)
+        images = torch.rand(CARS_BATCH, cars.IMAGE_SIZE, cars.IMAGE_SIZE, 3, device=dev,
+                            generator=gen)
+        cotangent = torch.randn(CARS_BATCH, cars.N_CLASSES, device=dev, generator=gen)
+
+        def input_grad():
+            x = images.clone().requires_grad_(True)
+            logits = net(x, torch.Generator(device=dev).manual_seed(10))
+            return torch.autograd.grad(logits, x, cotangent)[0]
+
+        reset_counts()  # counts from here on are this path's
+        grad, sec, peak = timed(input_grad)
+        if tuple(grad.shape) != tuple(images.shape) or not torch.isfinite(grad).all() \
+                or k2.launches == 0:
+            raise RuntimeError(f"cars input gradient: shape {tuple(grad.shape)}, finite "
+                               f"{bool(torch.isfinite(grad).all())}, K2 {k2.launches} launches")
+        out["cars_input_grad"] = {"batch": CARS_BATCH, "remat": defense.remat, "seconds": sec,
+                                  "max_memory_allocated_gb": peak, "finite": True,
+                                  "k2_launches": k2.launches, "k1_launches": k1.launches}
+        return out
+
+    attack_rm = run_phase("attack_remat", attack_remat_phase)
 
     def mean_call_s(phase):
         return sum(phase["call_s"][1:]) / TIMED_CALLS
@@ -669,7 +910,10 @@ def main() -> int:
               "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
               "torch.nn.functional.conv2d(groups=C), the depthwise only",
               **path_numbers(kernels["shapes"], flag["k1_launches"], per_decode("ids", n),
-                             "flagship", mean_call_s(flag))),
+                             "flagship", mean_call_s(flag)),
+              # launches in the attack phases (forwards, and recomputes under remat)
+              attack_launches={"attacks_parity": attack_parity["k1_launches"],
+                               "attack_flagship": attack_flag["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
         # `max_abs_err` cover both paths, and `cars` holds the cars path's
         entry("upfirdn_blur", k2.SOURCE, "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
@@ -678,7 +922,11 @@ def main() -> int:
                  "max_abs_err": max(k2_gender["max_abs_err"], k2_cars["max_abs_err"])},
               launches_by_path={"gender": k2_gender["launches"],
                                 "cars": k2_cars["launches"]},
-              cars=k2_cars),
+              cars=k2_cars,
+              # launches in phase attack_remat (forward, recompute and backward)
+              attack_launches={
+                  "gender_apgd_ce": attack_rm["gender_apgd_ce"]["k2_launches"],
+                  "cars_input_grad": attack_rm["cars_input_grad"]["k2_launches"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

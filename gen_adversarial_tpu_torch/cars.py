@@ -46,8 +46,10 @@ def cars_alphas(n_latent: int = len(CARS_ALPHAS)) -> np.ndarray:
 
 def cars_defense(initial_noise_eps: float = INITIAL_NOISE_EPS, device="cuda",
                  seed: int = 0, output_size: int = OUTPUT_SIZE,
-                 classifier_layers: Sequence[int] = RESNET50_LAYERS) -> MLVGMDefense:
-    """The cars MLVGMDefense with random weights from `seed`.
+                 classifier_layers: Sequence[int] = RESNET50_LAYERS,
+                 remat: bool = True) -> MLVGMDefense:
+    """The cars MLVGMDefense with random weights from `seed`, remat on as for
+    gender (gender.gender_defense).
 
     `output_size` and `classifier_layers` exist only to rehearse the defense
     at a reduced size (the tests, the smoke's parity phase)."""
@@ -67,4 +69,4 @@ def cars_defense(initial_noise_eps: float = INITIAL_NOISE_EPS, device="cuda",
         purifier=trans, classifier=clf, alphas=alphas, purify_encode=encode,
         purify_decode=decode, classifier_apply=make_classifier_apply(clf),
         initial_noise_eps=initial_noise_eps, normalize_before_purify=True,
-        image_size=IMAGE_SIZE)
+        image_size=IMAGE_SIZE, remat=remat)

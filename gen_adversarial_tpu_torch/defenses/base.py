@@ -10,7 +10,13 @@ Random draws come from a `Draws` source (models/nvae/distributions.py): a
 `torch.Generator`, or recorded tensors replayed in order. One call draws the
 input noise first (NHWC, the image's shape; only when initial_noise_eps > 0),
 then the purifier's draws (the NVAE's eps, or the StyleGAN2 mix noise).
-remat and compute_dtype are not ported yet.
+
+remat recomputes the purifier in the backward (torch.utils.checkpoint,
+non-reentrant; the JAX `remat_policy=None`, which saves nothing). It works
+under torch.autograd, not under torch.func, whose transforms refuse the
+checkpoint's saved-tensor hooks: the attacks (attacks/utils.class_grads)
+take their gradients through torch.autograd. compute_dtype is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gen_adversarial_tpu_torch.models.nvae.distributions import Draws, as_draws
 from gen_adversarial_tpu_torch.ops.blur import gaussian_blur2d
@@ -40,6 +47,38 @@ def add_l2_gaussian_noise(x: torch.Tensor, eps: float, draws: Draws) -> torch.Te
     dims = tuple(range(1, x.dim()))
     norm = torch.sqrt(torch.sum(noise ** 2, dim=dims, keepdim=True))
     return clamp01(x + noise * (eps / norm))
+
+
+class _RecordingDraws(Draws):
+    """Draws from `inner`, each appended to `record` as it is made."""
+
+    def __init__(self, inner: Draws, record: list):
+        self.inner, self.record = inner, record
+
+    def normal(self, shape, like):
+        eps = self.inner.normal(shape, like)
+        self.record.append(eps)
+        return eps
+
+
+def _remat_call(fn: Callable, draws: Draws | None, *args):
+    """fn(*args, draws) with nothing of it saved for the backward, which
+    runs it again (torch.utils.checkpoint, non-reentrant). The draws of the
+    first run are recorded and replayed, in order, by every recompute (one
+    per backward pass), so each backward differentiates the forward that ran
+    and not one with fresh noise. Nothing else in a purifier is random, so
+    the global RNG states are not stashed."""
+    record: list[torch.Tensor] = []
+    runs = 0
+
+    def region(*a):
+        nonlocal runs
+        runs += 1
+        if draws is None:
+            return fn(*a, None)
+        return fn(*a, _RecordingDraws(draws, record) if runs == 1 else Draws(record))
+
+    return checkpoint(region, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class ClassifierDefense(nn.Module):
@@ -70,14 +109,20 @@ class MLVGMDefense(nn.Module):
     purified are the halves of the purifier (defenses/purify.py); the encode
     half draws nothing, so with initial_noise_eps == 0 an EoT wrapper runs it
     once for all draws (defenses/eot.py). apply_blur blurs the input with
-    the kernel size of an image_size image before the noise."""
+    the kernel size of an image_size image before the noise. remat
+    recomputes the purify (both halves, or each half on the shared-encode
+    route) in the backward instead of saving its activations; of the JAX
+    `remat_policy` names only None (save nothing) is ported."""
 
     def __init__(self, purifier: nn.Module, classifier: nn.Module, alphas: torch.Tensor,
                  purify_encode: Callable, purify_decode: Callable,
                  classifier_apply: Callable, initial_noise_eps: float = 0.0,
                  normalize_before_purify: bool = False, apply_blur: bool = False,
-                 image_size: int = 64):
+                 image_size: int = 64, remat: bool = False, remat_policy: str | None = None):
         super().__init__()
+        if remat_policy is not None:
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r}: only None (save nothing) is ported")
         self.purifier = purifier
         self.classifier = classifier
         self.register_buffer("alphas", alphas)
@@ -88,6 +133,18 @@ class MLVGMDefense(nn.Module):
         self.normalize_before_purify = normalize_before_purify
         self.apply_blur = apply_blur
         self.image_size = image_size
+        self.remat = remat
+
+    def _call(self, fn, draws, *args):
+        if self.remat:
+            return _remat_call(fn, draws, *args)
+        return fn(*args, draws)
+
+    def _purify(self, x, draws):
+        return self.purify_decode(self.alphas, self.purify_encode(x), draws)
+
+    def _decode(self, state, draws):
+        return self.purify_decode(self.alphas, state, draws)
 
     def _normalize(self, x):
         return (x - 0.5) / 0.5 if self.normalize_before_purify else x
@@ -106,8 +163,8 @@ class MLVGMDefense(nn.Module):
 
     def purified(self, x, draws):
         draws = as_draws(draws)
-        state = self.purify_encode(self._normalize(self.preprocess(x, draws)))
-        return self._denormalize(self.purify_decode(self.alphas, state, draws))
+        x = self._normalize(self.preprocess(x, draws))
+        return self._denormalize(self._call(self._purify, draws, x))
 
     @property
     def supports_shared_encode(self) -> bool:
@@ -120,10 +177,11 @@ class MLVGMDefense(nn.Module):
         supports_shared_encode."""
         if not self.supports_shared_encode:
             raise ValueError("shared encode needs initial_noise_eps == 0")
-        return self.purify_encode(self._normalize(self.preprocess(x, None)))
+        x = self._normalize(self.preprocess(x, None))
+        return self._call(lambda v, _: self.purify_encode(v), None, x)
 
     def purified_from_state(self, state, draws):
-        return self._denormalize(self.purify_decode(self.alphas, state, as_draws(draws)))
+        return self._denormalize(self._call(self._decode, as_draws(draws), state))
 
     def _classify(self, purified, preds_only):
         logits = self.classifier_apply(purified).float()

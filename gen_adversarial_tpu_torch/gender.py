@@ -87,8 +87,11 @@ def init_stylegan_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
 
 def gender_defense(initial_noise_eps: float = INITIAL_NOISE_EPS, device="cuda",
                    seed: int = 0, stylegan_size: int = 1024,
-                   classifier_layers: Sequence[int] = RESNET50_LAYERS) -> MLVGMDefense:
-    """The gender MLVGMDefense with random weights from `seed`.
+                   classifier_layers: Sequence[int] = RESNET50_LAYERS,
+                   remat: bool = True) -> MLVGMDefense:
+    """The gender MLVGMDefense with random weights from `seed`. remat is on,
+    as the JAX factory sets it for the StyleGAN2 families: their attack
+    gradients do not fit without it.
 
     `stylegan_size` and `classifier_layers` exist only to rehearse the
     defense at a reduced size (the tests, the smoke's parity phase)."""
@@ -106,5 +109,5 @@ def gender_defense(initial_noise_eps: float = INITIAL_NOISE_EPS, device="cuda",
     return MLVGMDefense(
         purifier=psp, classifier=clf, alphas=alphas, purify_encode=encode,
         purify_decode=decode, classifier_apply=make_classifier_apply(clf),
-        initial_noise_eps=initial_noise_eps, normalize_before_purify=True)
+        initial_noise_eps=initial_noise_eps, normalize_before_purify=True, remat=remat)
 

@@ -127,12 +127,14 @@ def test_vmap_of_forward_matches_a_loop(batched):
     torch.testing.assert_close(vmap(fn)(*ins), want, **LOOP_TOL)
 
 
-@pytest.mark.parametrize("route", ["autograd_grad", "func_vjp"])
+@pytest.mark.parametrize("route", ["autograd_grad", "func_vjp", "vmap_autograd_grad"])
 def test_x_only_backward_skips_the_weight_cotangents(monkeypatch, route):
     """With only x differentiated (an attack: frozen weights), the backward
     returns None for the five weight cotangents and the same dx as the
     six-cotangent backward. ctx.needs_input_grad is set by autograd on one
-    route and by torch.func on the other: both are checked."""
+    route and by torch.func on the other: both are checked, and
+    torch.autograd.grad under torch.func.vmap over two cotangents (the
+    attacks' class gradients: the backward runs once, batched)."""
     args = _inputs(32, seed=8)
     g = torch.tensor(np.random.RandomState(9).randn(2, 32, 8, 8).astype(np.float32))
     returned = []
@@ -148,9 +150,15 @@ def test_x_only_backward_skips_the_weight_cotangents(monkeypatch, route):
     if route == "autograd_grad":
         x.requires_grad_()
         (dx,) = torch.autograd.grad(k1.depthwise_silu_segment(x, *w), x, g)
-    else:
+    elif route == "func_vjp":
         _, vjp_fn = vjp(lambda v: k1.depthwise_silu_segment(v, *w), x)
         (dx,) = vjp_fn(g)
+    else:
+        x.requires_grad_()
+        y = k1.depthwise_silu_segment(x, *w)
+        dxs = vmap(lambda ct: torch.autograd.grad(y, x, ct)[0])(torch.stack([g, 2 * g]))
+        dx = dxs[0]
+        torch.testing.assert_close(dxs[1], 2 * dx, **LOOP_TOL)
     assert len(returned) == 1
     assert returned[0][0] is not None
     assert all(r is None for r in returned[0][1:])

@@ -265,6 +265,9 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "defenses/base.py", "models/classifiers.py", "core/convert.py", "gender.py",
     "models/style_transformer/encoder.py", "models/style_transformer/model.py", "cars.py",
     "ops/blur.py", "defenses/ablations.py",
+    "attacks/utils.py", "attacks/fgsm.py", "attacks/deepfool.py", "attacks/cw.py",
+    "attacks/apgd.py", "attacks/fab.py", "attacks/autoattack.py", "core/config.py",
+    "eval/factory.py",
 ]
 
 

@@ -4,6 +4,7 @@ module, NHWC/NCHW moves, and the relative error the gradient tests bound."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from gen_adversarial_tpu_torch.core.convert import from_jax_variables
@@ -111,3 +112,16 @@ def keyed_normal_call(key, per_draw):
             jax.random.normal = real_normal
 
     return jax_call
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module's tests, restored after. The
+    suite runs several workers on few cores, where torch's threads wait on
+    each other at every operation: a remat test of a small NVAE took 143 s
+    among 4 busy workers and under 1 s alone on 8 cores (16 s with one
+    thread against 8 spinning processes, over 150 s with 8 threads)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
