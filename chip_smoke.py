@@ -29,9 +29,20 @@ CPU (FAB over 100 classes), and the staged AutoAttack against the
 monolithic one on the GPU; `attack_flagship` runs DeepFool and APGD-CE a
 few steps on the full ids flagship (EoT-32), through K1; `attack_remat`
 runs APGD-CE on the full gender defense and one input gradient of the full
-cars defense, both with remat, through K2. Every phase prints one JSON
-line with its elapsed seconds;
-the second-to-last line summarises the kernels, and the last line is
+cars defense, both with remat, through K2. Then bfloat16
+(core/precision.defense_astype): `kernels_bf16` checks the kernels'
+bfloat16 builds against their bfloat16 plain versions at the flagship's and
+the gender path's shapes; `bf16` runs the three full-width forwards in
+bfloat16 after a float32 call on the same weights, with the host's cost of
+a launch and, from one torch.profiler trace in each dtype, the device's
+busy share and the kernels' device time; `bf16_parity` holds the
+three small defenses and the small ids class gradients in bfloat16 on the
+GPU against the CPU's float32, within twice the CPU's own bfloat16 distance;
+`attack_bf16` runs APGD-CE on the bfloat16 flagship and, with remat, on the
+bfloat16 gender defense. Every phase prints one JSON line with its elapsed
+seconds;
+the second-to-last line summarises the kernels (K1 and K2, each in float32
+and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
 (the build included), ends the run with a non-zero exit code and no last
 line. Without a CUDA device it exits non-zero at once. It imports nothing of
@@ -97,6 +108,13 @@ REMAT_EOT_CHUNK = 4
 # the small gender defense's class gradients with remat on against off, on
 # cuDNN's deterministic algorithms: the recompute replays the same draws
 REMAT_RTOL = 1e-5
+# bfloat16 kernel vs its bfloat16 plain version: both sum in float32 and
+# round y once, so they differ by one bfloat16 spacing at most (2**-7 of the
+# value), beside the float32 kernels' absolute tolerance (phase
+# `kernels_bf16`); the plain version and the library call timed at fewer
+# launches
+BF16_KERNEL_RTOL = 2.0 ** -7
+BF16_SLOW_REPS = 5
 
 T0 = time.monotonic()
 
@@ -876,6 +894,303 @@ def main() -> int:
         return out
 
     attack_rm = run_phase("attack_remat", attack_remat_phase)
+    torch.cuda.empty_cache()
+
+    # ---- bfloat16 (core/precision.defense_astype): the kernels' bfloat16
+    # builds, the three full-width forwards, small defenses against the CPU's
+    # float32, and the attacks' gradients
+    bf16 = torch.bfloat16
+    from torch.profiler import ProfilerActivity, profile
+    from gen_adversarial_tpu_torch.core.precision import BF16_GAP_FACTOR, defense_astype
+    from gen_adversarial_tpu_torch.profile_flagship import kernel_times, kind_of
+
+    def check_bf16(name, got, want, tol):
+        """A bfloat16 kernel against its bfloat16 plain version: both sum in
+        float32 and round once, so within one bfloat16 spacing of the plain
+        value (rtol 2**-7) beside the float32 kernel's absolute tolerance.
+        Returns (max abs err, max ulps: |got - want| in units of want's
+        bfloat16 spacing, 2**-7 of its binade, where |want| is at least the
+        absolute part of the bound; that absolute part). Eight images at a
+        time: the 1024-px site is 4.3 GB in bfloat16."""
+        scale = max(1.0, want.abs().max().float().item())
+        bad, err, ulps = 0, 0.0, 0.0
+        for g, w in zip(got.split(8), want.split(8)):
+            w = w.float()
+            d = (g.float() - w).abs()
+            w = w.abs()
+            bad += (d > BF16_KERNEL_RTOL * w + tol * scale).sum().item()
+            err = max(err, d.max().item())
+            spacing = torch.exp2(torch.floor(torch.log2(w.clamp(min=tol * scale))) - 7)
+            ulps = max(ulps, (d / spacing).max().item())
+        if bad or not math.isfinite(err):
+            raise RuntimeError(f"{name} (bfloat16) disagrees with its plain version at {bad} "
+                               f"elements: max abs err {err}, {ulps} ulps")
+        return err, ulps, tol * scale
+
+    def kernels_bf16_phase():
+        k1_rows = []
+        for (c, h), per_decode in shape_counts.items():
+            x = torch.randn(n, c, h, h, device=dev, generator=gen).to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            wk = (torch.randn(5, 5, c, device=dev, generator=gen) * 0.2).to(bf16)
+            aff = [(torch.randn(c, device=dev, generator=gen) * 0.5 + 1).to(bf16)
+                   for _ in range(4)]
+            y = k1.depthwise_silu_segment(x, wk, *aff)
+            torch.cuda.synchronize()
+            err, ulps, tol = check_bf16(f"K1 at C={c} H={h}", y,
+                                        k1.depthwise_silu_segment_plain(x, wk, *aff), K1_TOL)
+            w = k1.taps_oihw(wk).contiguous()
+            ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk, *aff))
+            # the same launches with the taps and affines already float32:
+            # without the wrapper's five casts of the bfloat16 weights
+            wk32, aff32 = wk.float(), [a.float() for a in aff]
+            ms_f32_weights = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk32, *aff32))
+            plain_ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment_plain(x, wk, *aff),
+                               BF16_SLOW_REPS)
+            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w, padding=2, groups=c),
+                                 BF16_SLOW_REPS)
+            elements = x.numel()
+            # bfloat16 x and y, float32 taps and affines; float32 arithmetic
+            bytes_moved = 2 * elements * 2 + (25 + 4) * c * 4
+            byte_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+            op_ms = 1e3 * elements * K1_FLOP_PER_ELEMENT / F32_FLOP_PER_S
+            k1_rows.append({"C": c, "H": h, "N": n, "per_decode": per_decode,
+                            "max_abs_err": err, "max_ulps": ulps, "tol": tol,
+                            "kernel_ms": ms, "kernel_ms_float32_weights": ms_f32_weights,
+                            "plain_ms": plain_ms, "library_ms": library_ms,
+                            "bound_ms": max(byte_ms, op_ms),
+                            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                            "roofline_share": max(byte_ms, op_ms) / ms})
+            del x, y
+        kf = torch.tensor(taps[::-1], device=dev)
+        k2_rows = []
+        for c, h in k2_sites:
+            x = torch.randn(n_gender, c, h, h, device=dev, generator=gen).to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            y = k2.upfirdn_blur(x, taps, BLUR_PAD)
+            torch.cuda.synchronize()
+            err, ulps, tol = check_bf16(f"K2 at C={c} H={h}", y,
+                                        k2.blur_plain(x, taps, BLUR_PAD), K2_TOL)
+            w2d = torch.outer(kf, kf).to(bf16).expand(c, 1, len(taps), len(taps)).contiguous()
+            ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), BF16_SLOW_REPS)
+            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
+                                 BF16_SLOW_REPS)
+            byte_ms = 1e3 * (x.numel() + y.numel()) * 2 / HBM_BYTES_PER_S
+            op_ms = 1e3 * y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S
+            k2_rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_gender,
+                            "per_decode": 1, "max_abs_err": err, "max_ulps": ulps, "tol": tol,
+                            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                            "bound_ms": max(byte_ms, op_ms),
+                            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                            "roofline_share": max(byte_ms, op_ms) / ms})
+            del x, y
+            torch.cuda.empty_cache()
+        return {"dtype": "bfloat16", "slow_reps": BF16_SLOW_REPS,
+                "k1": {"kernel": "depthwise_silu_segment", "shapes": k1_rows},
+                "k2": {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
+                       "shapes": k2_rows}}
+
+    kernels16 = run_phase("kernels_bf16", kernels_bf16_phase)
+
+    def host_launch_us(reps=2000):
+        """The host's cost of one launch: µs a launch of a one-element add,
+        `reps` of them, then a synchronize. The device does almost nothing,
+        so this is the host's speed at dispatching, in this run."""
+        t = torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        for _ in range(reps):
+            t.add_(1)
+        torch.cuda.synchronize()
+        return 1e6 * (time.monotonic() - start) / reps
+
+    def timed_and_traced(call):
+        """One untraced call and one traced call, each ending in a
+        synchronize: the untraced call's host seconds, the traced call's
+        summed device kernel seconds, their ratio (the busy share; kernels
+        that overlap can take it above 1) and the kernel seconds by kind."""
+        t = time.monotonic()
+        call()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels_ = kernel_times(prof, torch)
+        by_kind = {}
+        for kname, (us, _) in kernels_.items():
+            by_kind[kind_of(kname)] = by_kind.get(kind_of(kname), 0.0) + us / 1e6
+        device_s = sum(by_kind.values())
+        if not kernels_:
+            return {"wall_s": wall_s, "device_kernel_s": "not measured",
+                    "busy_share": "not measured"}
+        return {"wall_s": wall_s, "device_kernel_s": device_s,
+                "busy_share": device_s / wall_s, "by_kind_s": by_kind}
+
+    def bf16_forward(name, make, batch, size, classes, seed):
+        """One full-width defense: a float32 call, then the same weights cast
+        by defense_astype and the same draws' seed in bfloat16: one warm-up
+        call (compared with the float32 one), then the timed calls. In each
+        dtype one more call untraced and one traced give the device's busy
+        share in this run, and the host's launch cost is taken before the
+        timed calls: the bfloat16 flagship's device idles most of its call,
+        and its rate varies from run to run."""
+        t = time.monotonic()
+        defense = make()
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t
+        net = eot_wrap(defense, eot_steps=EOT_STEPS)
+        images = torch.rand(batch, size, size, 3, device=dev, generator=gen)
+        with torch.no_grad():
+            ref = net(images, torch.Generator(device=dev).manual_seed(seed))
+            draws32 = torch.Generator(device=dev).manual_seed(seed)
+            busy32 = timed_and_traced(lambda: net(images, draws32))
+            defense_astype(defense)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # counts from here on are this path's, in bfloat16
+            draws = torch.Generator(device=dev).manual_seed(seed)
+            times, calls = [], []
+            launch_us = host_launch_us()
+            for _ in range(1 + TIMED_CALLS):  # one warm-up, then the timed calls
+                t = time.monotonic()
+                calls.append(net(images, draws))
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t)
+            launched = {dtype: (k1.launches_by_dtype[dtype], k2.launches_by_dtype[dtype])
+                        for dtype in (bf16, torch.float32)}
+            busy16 = timed_and_traced(lambda: net(images, draws))
+        first, logits = calls[0], calls[-1]
+        if logits.dtype != torch.float32 or tuple(logits.shape) != (batch, classes) \
+                or not torch.isfinite(logits).all():
+            raise RuntimeError(f"{name} bfloat16 logits: {logits.dtype} "
+                               f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+        spread = ref.std().item()
+        delta = (first - ref).abs().mean().item()
+        if not math.isfinite(delta):
+            raise RuntimeError(f"{name}: the bfloat16 logits' distance from float32 is {delta}")
+        return {"batch": batch, "eot_steps": EOT_STEPS, "dtype": "bfloat16",
+                "initial_noise_eps": defense.initial_noise_eps, "weights_build_s": build_s,
+                "compute_dtype": str(defense.compute_dtype), "finite": True,
+                "argmax_agreement_vs_f32":
+                    (first.argmax(1) == ref.argmax(1)).float().mean().item(),
+                "mean_abs_dlogit_over_std_vs_f32": delta / spread,
+                "k1_launches": launched[bf16][0], "k2_launches": launched[bf16][1],
+                "f32_launches": sum(launched[torch.float32]),
+                "call_s": times, "images_per_s": batch * TIMED_CALLS / sum(times[1:]),
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "host_launch_us": launch_us, "busy_bf16": busy16, "busy_f32": busy32}
+
+    def bf16_phase():
+        out = {}
+        for name, make, batch, size, classes, seed, kernel in (
+                ("flagship", lambda: flagship(initial_noise_eps=2.0, device=dev, seed=0),
+                 BATCH, 64, 100, 1, "k1"),
+                ("gender", lambda: gender_defense(device=dev, seed=0), GENDER_BATCH,
+                 IMAGE_SIZE, 2, 2, "k2"),
+                ("cars", lambda: cars.cars_defense(device=dev, seed=0), CARS_BATCH,
+                 cars.IMAGE_SIZE, cars.N_CLASSES, 5, "k2")):
+            out[name] = bf16_forward(name, make, batch, size, classes, seed)
+            if out[name][f"{kernel}_launches"] == 0 or out[name]["f32_launches"]:
+                raise RuntimeError(f"{name} in bfloat16: {out[name]}: its kernel's bfloat16 "
+                                   "build was not launched, or a float32 one was")
+            torch.cuda.empty_cache()
+        return out
+
+    run16 = run_phase("bf16", bf16_phase)
+
+    def rel_l2(got, want):
+        return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+    def bf16_parity_phase():
+        # each small defense in float32 on the CPU, then cast in place:
+        # bfloat16 on the CPU (the gap bfloat16 itself opens) and on the GPU,
+        # which may be at most BF16_GAP_FACTOR x as far from the CPU's float32
+        out = {}
+
+        def gate(name, want, cpu16, gpu16, **extra):
+            gap, err = rel_l2(cpu16, want), rel_l2(gpu16, want)
+            if not math.isfinite(err) or err > BF16_GAP_FACTOR * gap:
+                raise RuntimeError(f"{name}, GPU bfloat16 vs CPU float32: {err} > "
+                                   f"{BF16_GAP_FACTOR} x the CPU bfloat16's {gap}")
+            out[name] = {"gpu_bf16_vs_cpu_f32": err, "cpu_bf16_vs_cpu_f32": gap,
+                         "gpu_vs_cpu_bf16": rel_l2(gpu16, cpu16), "factor": BF16_GAP_FACTOR,
+                         **extra}
+
+        for name, (cpu, gpu, x, draws, eot, _), launched in (
+                ("ids", small_ids(), lambda: k1.launches_by_dtype[bf16]),
+                ("gender", small_gender(), lambda: k2.launches_by_dtype[bf16]),
+                ("cars", small_cars(cars.INITIAL_NOISE_EPS, 2, 4),
+                 lambda: k2.launches_by_dtype[bf16])):
+            with torch.no_grad():
+                want = eot_wrap(cpu, eot)(x, draws)
+                cpu16 = eot_wrap(defense_astype(cpu), eot)(x, draws)
+                before = launched()
+                gpu16 = eot_wrap(defense_astype(gpu), eot)(x.to(dev), draws).cpu()
+            if launched() == before:
+                raise RuntimeError(f"the small {name} defense in bfloat16 launched no kernel")
+            gate(name, want, cpu16, gpu16, eot_steps=eot, batch=x.shape[0],
+                 launches=launched() - before)
+        # the small ids defense's class gradients (torch.func.vjp, vmap over
+        # the one-hot cotangents), the same way
+        cpu, gpu, x, draws, eot, _ = small_ids()
+        want = class_grads(eot_wrap(cpu, eot), x, draws)
+        cpu16 = class_grads(eot_wrap(defense_astype(cpu), eot), x, draws)
+        gpu16 = class_grads(eot_wrap(defense_astype(gpu), eot), x.to(dev), draws).cpu()
+        if gpu16.dtype != torch.float32:
+            raise RuntimeError(f"bfloat16 class gradients came back as {gpu16.dtype}")
+        gate("ids_class_grads", want, cpu16, gpu16, classes=want.shape[0])
+        return out
+
+    run_phase("bf16_parity", bf16_parity_phase)
+    torch.cuda.empty_cache()
+
+    def attack_bf16_phase():
+        # APGD-CE through the bfloat16 flagship (as attack_flagship, in
+        # bfloat16), then through the bfloat16 gender defense with remat and
+        # EoT chunks of REMAT_EOT_CHUNK (as attack_remat)
+        out = {"eot_steps": EOT_STEPS, "dtype": "bfloat16"}
+        defense = defense_astype(flagship(initial_noise_eps=2.0, device=dev, seed=0))
+        net = eot_wrap(defense, eot_steps=EOT_STEPS)
+        images = torch.rand(ATTACK_BATCH, 64, 64, 3, device=dev, generator=gen)
+        with torch.no_grad():
+            labels = net(images, torch.Generator(device=dev).manual_seed(6)).argmax(1)
+        reset_counts()  # counts from here on are this path's
+        launch_us = host_launch_us()
+        res, sec, peak = timed(lambda: attacks.apgd_attack(
+            net, images, labels, torch.Generator(device=dev).manual_seed(8),
+            ATTACK_APGD_ITERS, 0.75, 0.5, True))
+        out["flagship_apgd_ce"] = {
+            **check_attack("flagship bf16 apgd_ce", res, ATTACK_BATCH), "batch": ATTACK_BATCH,
+            "iters": ATTACK_APGD_ITERS, "max_bound": 0.5, "seconds": sec,
+            "s_per_gradient": sec / (ATTACK_APGD_ITERS + 1), "max_memory_allocated_gb": peak,
+            "adv_dtype": str(res[2].dtype), "k1_launches": k1.launches_by_dtype[bf16],
+            "host_launch_us": launch_us}
+        if k1.launches_by_dtype[bf16] == 0 or res[2].dtype != torch.float32:
+            raise RuntimeError(f"the bfloat16 flagship attack: {out['flagship_apgd_ce']}")
+        del defense, net, res
+        torch.cuda.empty_cache()
+
+        defense = defense_astype(gender_defense(device=dev, seed=0))
+        net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=REMAT_EOT_CHUNK)
+        images = torch.rand(GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev, generator=gen)
+        labels = torch.arange(GENDER_BATCH, device=dev) % 2
+        reset_counts()  # counts from here on are this path's
+        res, sec, peak = timed(lambda: attacks.apgd_attack(
+            net, images, labels, torch.Generator(device=dev).manual_seed(9),
+            REMAT_APGD_ITERS, 0.75, 0.5, True))
+        out["gender_apgd_ce"] = {
+            **check_attack("gender bf16 apgd_ce", res, GENDER_BATCH), "batch": GENDER_BATCH,
+            "remat": defense.remat, "eot_chunk": REMAT_EOT_CHUNK, "iters": REMAT_APGD_ITERS,
+            "max_bound": 0.5, "seconds": sec, "s_per_gradient": sec / (REMAT_APGD_ITERS + 1),
+            "max_memory_allocated_gb": peak, "adv_dtype": str(res[2].dtype),
+            "k2_launches": k2.launches_by_dtype[bf16]}
+        if k2.launches_by_dtype[bf16] == 0 or res[2].dtype != torch.float32:
+            raise RuntimeError(f"the bfloat16 gender attack: {out['gender_apgd_ce']}")
+        return out
+
+    attack16 = run_phase("attack_bf16", attack_bf16_phase)
 
     def mean_call_s(phase):
         return sum(phase["call_s"][1:]) / TIMED_CALLS
@@ -886,14 +1201,20 @@ def main() -> int:
         def weighted(key):
             return sum(r[key] * r["per_decode"] for r in rows)
         ms = weighted("kernel_ms")
-        return {"launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": ms, "plain_ms": weighted("plain_ms"), "bound_ms": weighted("bound_ms"),
-                "bound_by": "bytes", "library_ms": weighted("library_ms"),
-                "copy_ms": weighted("copy_ms"), "per": per,
-                f"share_of_{path}_call": ms / 1e3 / call_s}
+        out = {"launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+               "ms": ms, "plain_ms": weighted("plain_ms"), "bound_ms": weighted("bound_ms"),
+               "bound_by": "bytes" if all(r.get("bound_by", "bytes") == "bytes" for r in rows)
+               else "operations",
+               "library_ms": weighted("library_ms"), "per": per,
+               f"share_of_{path}_call": ms / 1e3 / call_s}
+        if "copy_ms" in rows[0]:
+            out["copy_ms"] = weighted("copy_ms")
+        if "max_ulps" in rows[0]:
+            out["max_ulps"] = max(r["max_ulps"] for r in rows)
+        return out
 
-    def entry(name, source, replaces, library, **numbers):
-        return {"name": name, "route": "cuda",
+    def entry(name, dtype, source, replaces, library, **numbers):
+        return {"name": name, "dtype": dtype, "route": "cuda",
                 "source": f"gen_adversarial_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, **numbers, "library": library}
 
@@ -905,28 +1226,60 @@ def main() -> int:
                              per_decode("gender", n_gender), "gender", mean_call_s(gender))
     k2_cars = path_numbers(kernels2_cars["shapes"], cars_run["k2_launches"],
                            per_decode("cars", n_cars), "cars", mean_call_s(cars_run))
+    k1_16 = path_numbers(kernels16["k1"]["shapes"], run16["flagship"]["k1_launches"],
+                         per_decode("ids", n), "flagship", mean_call_s(run16["flagship"]))
+    k2_16_gender = path_numbers(kernels16["k2"]["shapes"], run16["gender"]["k2_launches"],
+                                per_decode("gender", n_gender), "gender",
+                                mean_call_s(run16["gender"]))
+    k2_16_cars = run16["cars"]["k2_launches"]
+
+    def device_ms(path, busy, kernel_kind):
+        """The kernel's device ms in one traced call of phase bf16 (one
+        decode of the path's EoT batch)."""
+        by_kind = run16[path][busy].get("by_kind_s")
+        return 1e3 * by_kind.get(kernel_kind, 0.0) if by_kind else "not measured"
     emit({"kernels": [
-        entry("depthwise_silu_segment", k1.SOURCE,
+        entry("depthwise_silu_segment", "float32", k1.SOURCE,
               "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
               "torch.nn.functional.conv2d(groups=C), the depthwise only",
               **path_numbers(kernels["shapes"], flag["k1_launches"], per_decode("ids", n),
                              "flagship", mean_call_s(flag)),
+              device_ms=device_ms("flagship", "busy_f32", "k1_depthwise_segment"),
               # launches in the attack phases (forwards, and recomputes under remat)
               attack_launches={"attacks_parity": attack_parity["k1_launches"],
                                "attack_flagship": attack_flag["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
         # `max_abs_err` cover both paths, and `cars` holds the cars path's
-        entry("upfirdn_blur", k2.SOURCE, "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
+        entry("upfirdn_blur", "float32", k2.SOURCE,
+              "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
               "torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C)",
               **{**k2_gender, "launches": k2_gender["launches"] + k2_cars["launches"],
                  "max_abs_err": max(k2_gender["max_abs_err"], k2_cars["max_abs_err"])},
               launches_by_path={"gender": k2_gender["launches"],
                                 "cars": k2_cars["launches"]},
+              device_ms=device_ms("gender", "busy_f32", "k2_upfirdn_blur"),
               cars=k2_cars,
               # launches in phase attack_remat (forward, recompute and backward)
               attack_launches={
                   "gender_apgd_ce": attack_rm["gender_apgd_ce"]["k2_launches"],
                   "cars_input_grad": attack_rm["cars_input_grad"]["k2_launches"]}),
+        # the bfloat16 builds: launches in phase bf16 (the three forwards)
+        # and attack_bf16; times at the flagship's and gender's shapes
+        entry("depthwise_silu_segment", "bfloat16", k1.SOURCE,
+              "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
+              "torch.nn.functional.conv2d(groups=C) in bfloat16, the depthwise only",
+              **k1_16, device_ms=device_ms("flagship", "busy_bf16", "k1_depthwise_segment"),
+              attack_launches={
+                  "flagship_apgd_ce": attack16["flagship_apgd_ce"]["k1_launches"]}),
+        # the top-level numbers are the gender path's; `launches` covers the
+        # gender and cars forwards
+        entry("upfirdn_blur", "bfloat16", k2.SOURCE,
+              "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
+              "torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C) in bfloat16",
+              **{**k2_16_gender, "launches": k2_16_gender["launches"] + k2_16_cars},
+              launches_by_path={"gender": k2_16_gender["launches"], "cars": k2_16_cars},
+              device_ms=device_ms("gender", "busy_bf16", "k2_upfirdn_blur"),
+              attack_launches={"gender_apgd_ce": attack16["gender_apgd_ce"]["k2_launches"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

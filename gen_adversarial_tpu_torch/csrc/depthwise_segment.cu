@@ -1,20 +1,23 @@
 // Fused decoder-cell segment of the NVAE:
 //     y = silu(DW5x5(silu(x * s0 + b0)) * s1 + b1)
-// on channels-last (NHWC) float32 tensors, one read of x and one write of y.
+// on channels-last (NHWC) tensors, one read of x and one write of y; x and y
+// are float32 or bfloat16 (the model's dtype), taps and affines float32.
 //
 // Replaces the Pallas TPU kernel gen_adversarial_tpu/ops/pallas_depthwise.py
 // (`_kernel`, launched by `_segment_call`). Same math: XLA correlation
 // convention (no tap flip), zero "SAME" padding of 2 applied AFTER the first
-// SiLU, float32 arithmetic inside and at the edges.
+// SiLU, float32 arithmetic inside, the model's dtype at the edges: in
+// bfloat16 only y is rounded, once, as it is stored.
 //
 // What bounds it on an H100: instruction issue, before memory. Per output it
-// moves 8 bytes (one read of x, one write of y): 4.03 ms for the 1.686e9
-// outputs of a flagship decode at 3.35 TB/s. Its arithmetic floor is the 25
-// FMAs of the depthwise, but what a thread issues around them decides the
-// time. The first design (per-element `cp.async` staging of an 8x8 tile with
-// a bounds-checked offset per element, accurate SiLUs with their slow-path
-// calls, 1.72 first SiLUs an output from the 12x12 halo) issues about 150
-// SASS instructions an output (its loop over one image: about 1,460 a thread
+// moves 8 bytes in float32 (one read of x, one write of y; 4 in bfloat16):
+// 4.03 ms (2.01 ms in bfloat16) for the 1.686e9 outputs of a flagship decode
+// at 3.35 TB/s. Its arithmetic floor is the 25 FMAs of the depthwise, but
+// what a thread issues around them decides the time. The first design
+// (per-element `cp.async` staging of an 8x8 tile with a bounds-checked
+// offset per element, accurate SiLUs with their slow-path calls, 1.72
+// first SiLUs an output from the 12x12 halo) issues about 150 SASS
+// instructions an output (its loop over one image: about 1,460 a thread
 // for 8 outputs), which at the card's peak issue rate alone is longer than
 // the byte bound. This design issues about 54 an output on 16x16 tiles (1,715
 // a thread for 32 outputs: 567 for the activation pass, 1,036 for the
@@ -58,10 +61,21 @@
 // thread issues the row stores, waits until they have read the stage and
 // refills it with the image `kStages` ahead.
 //
-// Channel width: a TMA row pitch (C x 4 bytes) must be a multiple of 16, so
-// C must be a multiple of 4, and x and y 16-byte aligned. Every NVAE width
-// qualifies; the wrapper (ops/depthwise.py) refuses other widths on a CUDA
-// tensor rather than keep a second staging path.
+// bfloat16 (the `Elem` template parameter): the stages hold the bfloat16
+// input as the TMA brings it, and the activation pass converts it into a
+// float32 tile of its own, so silu(x*s0+b0) enters the 25-tap sum unrounded,
+// as in the Pallas kernel. In float32 that tile is the stage itself
+// (activated in place). A bfloat16 stage is half the bytes, so the two
+// stages and the float32 tile take the shared memory the two float32 stages
+// take: the same blocks an SM. The outputs are rounded to bfloat16 into the
+// stage's interior and leave by the same TMA row stores. It issues what the
+// float32 build issues for half the bytes, and takes about as long (PERF.md).
+//
+// Channel width: a TMA row pitch (C x 4 bytes in float32, C x 2 in bfloat16)
+// must be a multiple of 16, so C must be a multiple of 4 (float32) or 8
+// (bfloat16), and x and y 16-byte aligned. Every NVAE width qualifies; the
+// wrapper (ops/depthwise.py) refuses other widths on a CUDA tensor rather
+// than keep a second staging path.
 //
 // Sizes: no thread computes a global address. The TMA takes one 32-bit
 // coordinate a dimension and 64-bit strides, and the tensor maps' encoder
@@ -83,6 +97,7 @@
 // -lcuda.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,6 +119,24 @@ constexpr int kMaxDevices = 64;
 constexpr int kErrNoEncoder = -1;  // cuTensorMapEncodeTiled not found
 constexpr int kErrEncode = -2;     // the tensor map was refused
 constexpr int kErrWidth = -3;      // C not a multiple of 4, or x or y not 16-byte aligned
+constexpr int kErrWidthBf16 = -4;  // the same in bfloat16, where C must be a multiple of 8
+
+// the element type of x and y: its tensor-map type and its conversions to
+// and from the float32 the kernel computes in (round to nearest even)
+template <typename E>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  __device__ static __forceinline__ float load(float v) { return v; }
+  __device__ static __forceinline__ float store(float v) { return v; }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static __forceinline__ float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __forceinline__ __nv_bfloat16 store(float v) { return __float2bfloat16_rn(v); }
+};
 
 // silu(v) = v / (1 + exp(-v)), as __fdividef(v, 1 + __expf(-v)) computes it
 // (the special-function unit's exp2 and reciprocal) but without those
@@ -175,15 +208,19 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       : "memory");
 }
 
-template <int T>
+template <int T, typename E>
 struct Tile {
   static constexpr int kHalo = T + 2 * kPad;
   static constexpr int kHaloPix = kHalo * kHalo;
   static constexpr int kWarps = T / kCols;
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kStageFloats = kHaloPix * kTileC;
-  static constexpr uint32_t kStageBytes = kStageFloats * sizeof(float);
-  static constexpr size_t kSmemBytes = kStages * (kStageBytes + sizeof(uint64_t));
+  static constexpr int kStageElems = kHaloPix * kTileC;
+  static constexpr uint32_t kStageBytes = kStageElems * sizeof(E);
+  // the float32 activated tile: a region of its own unless the stage is float32
+  static constexpr bool kInPlace = sizeof(E) == sizeof(float);
+  static constexpr uint32_t kActBytes = kInPlace ? 0 : kHaloPix * kTileC * sizeof(float);
+  static constexpr size_t kSmemBytes =
+      kStages * (kStageBytes + sizeof(uint64_t)) + kActBytes;
   // resident blocks an SM: by threads, and by shared memory (228 KB an SM,
   // 1 KB of it reserved per block)
   static constexpr int kBlocksPerSM = (kThreadsPerSM / kThreads) < (233472 / (kSmemBytes + 1024))
@@ -195,17 +232,22 @@ struct Tile {
   static_assert(kBlocksPerSM >= 1, "the stages do not fit in shared memory");
 };
 
-template <int T>
-__global__ void __launch_bounds__(Tile<T>::kThreads, Tile<T>::kBlocksPerSM)
+template <int T, typename E>
+__global__ void __launch_bounds__(Tile<T, E>::kThreads, Tile<T, E>::kBlocksPerSM)
 segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
                const float* __restrict__ taps,
                const float* __restrict__ s0, const float* __restrict__ b0,
                const float* __restrict__ s1, const float* __restrict__ b1,
                int N, int H, int W, int C, int tiles_w) {
-  using L = Tile<T>;
+  using L = Tile<T, E>;
   constexpr int kHalo = L::kHalo;
-  extern __shared__ __align__(128) float smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * L::kStageFloats);
+  // the stages, then the float32 activated tile (bfloat16 only), then the
+  // stages' mbarriers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
+  float* act_tile = reinterpret_cast<float*>(smem_raw + kStages * L::kStageBytes);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem_raw + kStages * L::kStageBytes + L::kActBytes);
 
   const int lane = threadIdx.x & 31;  // channel within the tile
   const int warp = threadIdx.x >> 5;
@@ -221,7 +263,7 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   auto issue = [&](int i) {
     const int s = i % kStages;
     mbar_expect_tx(&full[s], L::kStageBytes);
-    tma_load(smem + s * L::kStageFloats, &xmap, &full[s], c0, w0 - kPad, h0 - kPad, n_first + i);
+    tma_load(smem + s * L::kStageElems, &xmap, &full[s], c0, w0 - kPad, h0 - kPad, n_first + i);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
@@ -242,12 +284,14 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   const int rows = min(T, H - h0);  // output rows of this tile inside the image
   for (int i = 0; i < count; ++i) {
     const int s = i % kStages;
-    float* buf = smem + s * L::kStageFloats;
+    E* buf = smem + s * L::kStageElems;
+    // the activated tile: the stage itself in float32
+    float* act = L::kInPlace ? reinterpret_cast<float*>(buf) : act_tile;
     mbar_wait(&full[s], (i / kStages) & 1);
 
-    // the first affine and SiLU in place at the pixels inside the image;
-    // the TMA wrote zeros at those outside, which is the padding after the
-    // SiLU. Warp `warp` takes halo pixels warp, warp + kWarps, ... (row hr,
+    // the first affine and SiLU at the pixels inside the image; the TMA
+    // wrote zeros at those outside, which is the padding after the SiLU.
+    // Warp `warp` takes halo pixels warp, warp + kWarps, ... (row hr,
     // column wc); the test is uniform across the warp
     {
       int hr = warp / kHalo, wc = warp % kHalo;
@@ -255,9 +299,10 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
       for (int q = 0; q < (L::kHaloPix + L::kWarps - 1) / L::kWarps; ++q) {
         const unsigned h = h0 - kPad + hr, w = w0 - kPad + wc;  // < 0 wraps high
         if (L::kHaloPix % L::kWarps == 0 || q * L::kWarps + warp < L::kHaloPix) {
-          float& v = buf[(q * L::kWarps + warp) * kTileC + lane];
+          const int idx = (q * L::kWarps + warp) * kTileC + lane;
+          const float v = Elem<E>::load(buf[idx]);
           const float a = silu(fmaf(v, a0, z0));  // computed everywhere: no branch
-          v = (h < (unsigned)H && w < (unsigned)W) ? a : v;
+          act[idx] = (h < (unsigned)H && w < (unsigned)W) ? a : v;
         }
         wc += L::kWarps;
         if (wc >= kHalo) {
@@ -279,7 +324,8 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
     for (int r = 0; r < kHalo; ++r) {
       float v[kCols + kTaps - 1];
 #pragma unroll
-      for (int j = 0; j < kCols + kTaps - 1; ++j) v[j] = buf[(r * kHalo + col0 + j) * kTileC + lane];
+      for (int j = 0; j < kCols + kTaps - 1; ++j)
+        v[j] = act[(r * kHalo + col0 + j) * kTileC + lane];
 #pragma unroll
       for (int dy = 0; dy < kTaps; ++dy) {
         const int oh = r - dy;
@@ -294,15 +340,16 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
       }
     }
     // every warp is done reading the stage: write the outputs into its
-    // interior (halo row oh + 2, column col + 2), then one thread stores
-    // them row by row; the TMA drops channels, columns and rows outside y
+    // interior (halo row oh + 2, column col + 2), rounded to the model's
+    // dtype, then one thread stores them row by row; the TMA drops channels,
+    // columns and rows outside y
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
 #pragma unroll
       for (int oh = 0; oh < T; ++oh)
         buf[((oh + kPad) * kHalo + col0 + j + kPad) * kTileC + lane] =
-            silu(fmaf(acc[j][oh], a1, z1));
+            Elem<E>::store(silu(fmaf(acc[j][oh], a1, z1)));
     }
     // this thread's accesses of the stage, ordered before the TMA store that
     // reads it and the TMA load that refills it (the async proxy)
@@ -346,22 +393,23 @@ EncodeTiled encoder() {
   return fn;
 }
 
-template <int T>
-int launch_tiled(const float* x, const float* taps, const float* s0, const float* b0,
-                 const float* s1, const float* b1, float* y, int n, int h, int w, int c,
+template <int T, typename E>
+int launch_tiled(const E* x, const float* taps, const float* s0, const float* b0,
+                 const float* s1, const float* b1, E* y, int n, int h, int w, int c,
                  int device, cudaStream_t stream) {
-  using L = Tile<T>;
+  using L = Tile<T, E>;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return kErrNoEncoder;
   // (C, W, H, N) innermost first; boxes of 32 channels
+  constexpr cuuint64_t kBytes = sizeof(E);
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)w * c * 4,
-                                 (cuuint64_t)h * w * c * 4};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * kBytes, (cuuint64_t)w * c * kBytes,
+                                 (cuuint64_t)h * w * c * kBytes};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  auto make = [&](CUtensorMap* map, const float* base, cuuint32_t box_w, cuuint32_t box_h) {
+  auto make = [&](CUtensorMap* map, const E* base, cuuint32_t box_w, cuuint32_t box_h) {
     const cuuint32_t box[4] = {kTileC, box_w, box_h, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
-                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+    return encode(map, Elem<E>::kMapType, 4, const_cast<E*>(base), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   };
@@ -372,7 +420,7 @@ int launch_tiled(const float* x, const float* taps, const float* s0, const float
   static bool consented[kMaxDevices] = {};
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!consented[device]) {
-    cudaError_t err = cudaFuncSetAttribute(segment_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(segment_kernel<T, E>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)L::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
@@ -381,26 +429,45 @@ int launch_tiled(const float* x, const float* taps, const float* s0, const float
   const int tiles_w = (w + T - 1) / T;
   const int tiles_h = (h + T - 1) / T;
   const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, (n + kImages - 1) / kImages);
-  segment_kernel<T><<<grid, L::kThreads, L::kSmemBytes, stream>>>(xmap, ymap, taps, s0, b0, s1,
-                                                                   b1, n, h, w, c, tiles_w);
+  segment_kernel<T, E><<<grid, L::kThreads, L::kSmemBytes, stream>>>(
+      xmap, ymap, taps, s0, b0, s1, b1, n, h, w, c, tiles_w);
   return (int)cudaGetLastError();
+}
+
+// the checks and the tile choice of both entry points; `width` is the
+// channel multiple that makes a TMA row pitch 16 bytes
+template <typename E>
+int launch(const void* x, const void* taps, const void* s0, const void* b0, const void* s1,
+           const void* b1, void* y, int n, int h, int w, int c, int device, void* stream,
+           int width, int width_error) {
+  if (c % width != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return width_error;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto tiled = (h <= 8 && w <= 8) ? launch_tiled<8, E> : launch_tiled<16, E>;
+  return tiled((const E*)x, (const float*)taps, (const float*)s0, (const float*)b0,
+               (const float*)s1, (const float*)b1, (E*)y, n, h, w, c, device,
+               (cudaStream_t)stream);
 }
 
 }  // namespace
 
+// x and y float32; taps and affines float32
 extern "C" int gat_depthwise_segment_f32(const void* x, const void* taps, const void* s0,
                                          const void* b0, const void* s1, const void* b1,
                                          void* y, int n, int h, int w, int c, int device,
                                          void* stream) {
-  if (c % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(y) % 16 != 0)
-    return kErrWidth;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  auto launch = (h <= 8 && w <= 8) ? launch_tiled<8> : launch_tiled<16>;
-  return launch((const float*)x, (const float*)taps, (const float*)s0, (const float*)b0,
-                (const float*)s1, (const float*)b1, (float*)y, n, h, w, c, device,
-                (cudaStream_t)stream);
+  return launch<float>(x, taps, s0, b0, s1, b1, y, n, h, w, c, device, stream, 4, kErrWidth);
+}
+
+// x and y bfloat16; taps and affines float32
+extern "C" int gat_depthwise_segment_bf16(const void* x, const void* taps, const void* s0,
+                                          const void* b0, const void* s1, const void* b1,
+                                          void* y, int n, int h, int w, int c, int device,
+                                          void* stream) {
+  return launch<__nv_bfloat16>(x, taps, s0, b0, s1, b1, y, n, h, w, c, device, stream, 8,
+                               kErrWidthBf16);
 }
 
 extern "C" const char* gat_cuda_error_string(int code) {
@@ -411,6 +478,8 @@ extern "C" const char* gat_cuda_error_string(int code) {
       return "cuTensorMapEncodeTiled refused the tensor map of x";
     case kErrWidth:
       return "the TMA needs C a multiple of 4 and x and y 16-byte aligned";
+    case kErrWidthBf16:
+      return "the TMA needs C a multiple of 8 in bfloat16 and x and y 16-byte aligned";
     default:
       return cudaGetErrorString((cudaError_t)code);
   }

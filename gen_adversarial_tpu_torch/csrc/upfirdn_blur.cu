@@ -3,8 +3,10 @@
 // where kf are the 1-D taps flipped (a true convolution) and xpad is x
 // zero-padded by (pad0, pad1) on both spatial axes; the output has
 // h + pad0 + pad1 - taps + 1 rows, and as many columns by the same rule.
-// Channels-last (NHWC) float32 tensors; 3 or 4 taps; any pads (a negative
-// pad crops) and any channel count (the ragged channel tile is masked).
+// Channels-last (NHWC) float32 or bfloat16 tensors (the model's dtype); 3 or
+// 4 taps; any pads (a negative pad crops) and any channel count (the ragged
+// channel tile is masked). The sums are float32 in both: a bfloat16 input is
+// widened as it is staged and the output rounded once, as it is stored.
 //
 // Replaces the Pallas TPU kernel gen_adversarial_tpu/ops/pallas_upfirdn.py
 // (`_blur_kernel`, launched by `_pallas_blur_call`). Same math and the same
@@ -15,7 +17,7 @@
 // here while the tile is loaded.
 //
 // What bounds it on an H100: memory. Per output element it reads about one
-// input and writes one output (8 bytes in float32) against 2 * taps
+// input and writes one output (8 bytes in float32, 4 in bfloat16) against 2 * taps
 // multiply-adds, far below the card's float32 balance point. So the design
 // reads x once from device memory and writes y once: a block stages one
 // input tile plus its (taps - 1)-pixel halo in shared memory, and every
@@ -25,8 +27,10 @@
 // Layout of the work: a block owns a 16-row x 8-column output tile and one
 // 32-channel tile of one image. A warp's 32 lanes cover 32 consecutive
 // channels of one pixel, so every load and store is one coalesced 128-byte
-// transaction (at C = 32, the 1024-px generator block, exactly one pixel)
-// and every shared-memory access is free of bank conflicts. Each thread
+// transaction (at C = 32, the 1024-px generator block, exactly one pixel;
+// 64 bytes in bfloat16, where pairing channels would restore 128) and every
+// shared-memory access is free of bank conflicts. The staged tile is float32
+// in both dtypes. Each thread
 // first issues all its staging loads into registers (so many loads are in
 // flight at once), then writes them to shared memory. After that, warp
 // `col` walks down output column `col`: each staged row feeds the vertical
@@ -41,6 +45,7 @@
 // index and the CUDA stream; it launches asynchronously on that stream,
 // allocates nothing, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -57,9 +62,21 @@ struct Taps {
   float k[kMaxTaps];  // flipped taps (the correlation taps)
 };
 
-template <int T>
+// conversions between the element type and float32 (round to nearest even)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename E>
+__device__ __forceinline__ E narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <int T, typename E>
 __global__ void __launch_bounds__(kTileC * kWarps)
-blur_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, int C,
+blur_kernel(const E* __restrict__ x, E* __restrict__ y, int H, int W, int C,
             int pad0, int h_out, int w_out, int tiles_w, Taps taps) {
   constexpr int kRows = kTileH + T - 1;  // staged rows
   constexpr int kCols = kTileW + T - 1;  // staged columns
@@ -74,7 +91,7 @@ blur_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, in
   const int i0 = (blockIdx.x / tiles_w) * kTileH;
   const int j0 = (blockIdx.x % tiles_w) * kTileW;
   const int64_t n = blockIdx.z;
-  const float* xn = x + n * H * W * C;
+  const E* xn = x + n * H * W * C;
 
   // stage the tile and its halo; zeros outside the image (the padding)
   float v[kStaged];
@@ -84,7 +101,7 @@ blur_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, in
     const int h = i0 - pad0 + p / kCols;
     const int w = j0 - pad0 + p % kCols;
     v[s] = (p < kPix && c_ok && h >= 0 && h < H && w >= 0 && w < W)
-               ? __ldg(xn + ((int64_t)h * W + w) * C + c)
+               ? widen(__ldg(xn + ((int64_t)h * W + w) * C + c))
                : 0.0f;
   }
 #pragma unroll
@@ -99,7 +116,7 @@ blur_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, in
   float k[T];
 #pragma unroll
   for (int t = 0; t < T; ++t) k[t] = taps.k[t];
-  float* yn = y + n * h_out * w_out * C;
+  E* yn = y + n * h_out * w_out * C;
 
   // vert[b][i]: the vertical sum for output row i at staged column col + b;
   // staged row r adds tap r - i to rows r - T + 1 .. r, and completes row
@@ -121,13 +138,13 @@ blur_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, in
       float out = vert[0][i] * k[0];
 #pragma unroll
       for (int b = 1; b < T; ++b) out = fmaf(vert[b][i], k[b], out);
-      yn[((int64_t)(i0 + i) * w_out + j) * C + c] = out;
+      yn[((int64_t)(i0 + i) * w_out + j) * C + c] = narrow<E>(out);
     }
   }
 }
 
-template <int T>
-int launch(const float* x, float* y, int n, int h, int w, int c, int pad0, int pad1,
+template <int T, typename E>
+int launch(const E* x, E* y, int n, int h, int w, int c, int pad0, int pad1,
            const float* taps, cudaStream_t stream) {
   const int h_out = h + pad0 + pad1 - T + 1;
   const int w_out = w + pad0 + pad1 - T + 1;
@@ -136,28 +153,43 @@ int launch(const float* x, float* y, int n, int h, int w, int c, int pad0, int p
   const int tiles_w = (w_out + kTileW - 1) / kTileW;
   const int tiles_h = (h_out + kTileH - 1) / kTileH;
   const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, n);
-  blur_kernel<T><<<grid, dim3(kTileC, kWarps), 0, stream>>>(x, y, h, w, c, pad0, h_out,
-                                                           w_out, tiles_w, kf);
+  blur_kernel<T, E><<<grid, dim3(kTileC, kWarps), 0, stream>>>(x, y, h, w, c, pad0, h_out,
+                                                              w_out, tiles_w, kf);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// taps: `ntaps` host floats (3 or 4), in upfirdn order (not yet flipped)
-extern "C" int gat_upfirdn_blur_f32(const void* x, void* y, int n, int h, int w, int c,
-                                    int pad0, int pad1, const float* taps, int ntaps,
-                                    int device, void* stream) {
+template <typename E>
+int launch_taps(const void* x, void* y, int n, int h, int w, int c, int pad0, int pad1,
+                const float* taps, int ntaps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ntaps) {
     case 3:
-      return launch<3>((const float*)x, (float*)y, n, h, w, c, pad0, pad1, taps, s);
+      return launch<3, E>((const E*)x, (E*)y, n, h, w, c, pad0, pad1, taps, s);
     case 4:
-      return launch<4>((const float*)x, (float*)y, n, h, w, c, pad0, pad1, taps, s);
+      return launch<4, E>((const E*)x, (E*)y, n, h, w, c, pad0, pad1, taps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// x and y float32; taps: `ntaps` host floats (3 or 4), in upfirdn order (not
+// yet flipped)
+extern "C" int gat_upfirdn_blur_f32(const void* x, void* y, int n, int h, int w, int c,
+                                    int pad0, int pad1, const float* taps, int ntaps,
+                                    int device, void* stream) {
+  return launch_taps<float>(x, y, n, h, w, c, pad0, pad1, taps, ntaps, device, stream);
+}
+
+// x and y bfloat16; the taps as for float32
+extern "C" int gat_upfirdn_blur_bf16(const void* x, void* y, int n, int h, int w, int c,
+                                     int pad0, int pad1, const float* taps, int ntaps,
+                                     int device, void* stream) {
+  return launch_taps<__nv_bfloat16>(x, y, n, h, w, c, pad0, pad1, taps, ntaps, device,
+                                    stream);
 }
 
 extern "C" const char* gat_cuda_error_string(int code) {

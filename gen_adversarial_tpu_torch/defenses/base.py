@@ -15,8 +15,15 @@ remat recomputes the purifier in the backward (torch.utils.checkpoint,
 non-reentrant; the JAX `remat_policy=None`, which saves nothing). It works
 under torch.autograd, not under torch.func, whose transforms refuse the
 checkpoint's saved-tensor hooks: the attacks (attacks/utils.class_grads)
-take their gradients through torch.autograd. compute_dtype is not ported
-yet.
+take their gradients through torch.autograd.
+
+compute_dtype (set by core/precision.defense_astype, which also casts the
+weights once) runs the purifier and the classifier in that dtype (bfloat16):
+the blur, the input noise and the clamp run in float32, the image is cast
+after them and before the normalize, and the logits and the purified image
+come back as float32, so the attacks' math stays float32. Under remat the
+checkpointed region takes the cast tensor, and the draws it records are in
+the compute dtype.
 """
 
 from __future__ import annotations
@@ -84,7 +91,9 @@ def _remat_call(fn: Callable, draws: Draws | None, *args):
 class ClassifierDefense(nn.Module):
     """The bare classifier (the 'base' and 'trades' defense types): draws
     nothing, purifies nothing. The JAX factory runs it with EoT 1. The
-    ablations (defenses/ablations.py) are this with a `get_purified`."""
+    ablations (defenses/ablations.py) are this with a `get_purified`.
+    compute_dtype casts the classifier's input; the logits come back as
+    float32."""
 
     supports_shared_encode = False
 
@@ -92,10 +101,16 @@ class ClassifierDefense(nn.Module):
         super().__init__()
         self.classifier = classifier
         self.classifier_apply = classifier_apply
+        self.compute_dtype = None
+
+    def classify(self, x):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return self.classifier_apply(x).float()
 
     def forward(self, x, draws=None, preds_only: bool = True):
         purified = self.get_purified(x, draws)
-        logits = self.classifier_apply(purified).float()
+        logits = self.classify(purified)
         return logits if preds_only else (logits, purified)
 
     def get_purified(self, x, draws=None):
@@ -112,7 +127,8 @@ class MLVGMDefense(nn.Module):
     the kernel size of an image_size image before the noise. remat
     recomputes the purify (both halves, or each half on the shared-encode
     route) in the backward instead of saving its activations; of the JAX
-    `remat_policy` names only None (save nothing) is ported."""
+    `remat_policy` names only None (save nothing) is ported. compute_dtype:
+    see the module docstring."""
 
     def __init__(self, purifier: nn.Module, classifier: nn.Module, alphas: torch.Tensor,
                  purify_encode: Callable, purify_decode: Callable,
@@ -134,6 +150,7 @@ class MLVGMDefense(nn.Module):
         self.apply_blur = apply_blur
         self.image_size = image_size
         self.remat = remat
+        self.compute_dtype = None
 
     def _call(self, fn, draws, *args):
         if self.remat:
@@ -147,6 +164,10 @@ class MLVGMDefense(nn.Module):
         return self.purify_decode(self.alphas, state, draws)
 
     def _normalize(self, x):
+        """The purifier's input: cast to compute_dtype (after the float32
+        preprocessing), then (x - 0.5) / 0.5 where the purifier wants it."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         return (x - 0.5) / 0.5 if self.normalize_before_purify else x
 
     def _denormalize(self, out):

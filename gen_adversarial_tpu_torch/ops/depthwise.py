@@ -12,15 +12,21 @@ takes 16x16 tiles (the whole 8x8 map at H = 8) to cut the halo's repeated
 first SiLUs (see the source's header).
 
 `x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
-reads it as NHWC), with C a multiple of 4 on a CUDA tensor (the TMA's row
-pitch); `taps` is (5, 5, C) in the XLA correlation convention (no flip), like
-the JAX function; the four affines are (C,). All float32.
+reads it as NHWC), float32 or bfloat16 (the model's dtype, which y keeps),
+with C a multiple of 4 in float32 and of 8 in bfloat16 on a CUDA tensor (the
+TMA's row pitch of 16 bytes); `taps` is (5, 5, C) in the XLA correlation
+convention (no flip), like the JAX function; the four affines are (C,). The
+taps and affines may come in either dtype: the wrapper casts them to
+float32, as the Pallas kernel does at load, and the segment computes in
+float32 inside and rounds y once.
 
-On a CUDA tensor `depthwise_silu_segment` launches the kernel or raises; a
-CPU tensor takes `depthwise_silu_segment_plain`. The gradient is a
-`torch.autograd.Function` that works under torch.func (grad, vjp, vmap):
-its backward mirrors the JAX custom VJP `_seg_bwd` in plain PyTorch ops, as
-the JAX backward is plain XLA, and computes only the cotangents asked for;
+On a CUDA tensor `depthwise_silu_segment` launches the kernel of x's dtype
+(`gat_depthwise_segment_f32` or `_bf16`) or raises; a CPU tensor takes
+`depthwise_silu_segment_plain`. No dtype is widened to reach another
+kernel. The gradient is a `torch.autograd.Function` that works under
+torch.func (grad, vjp, vmap): its backward mirrors the JAX custom VJP
+`_seg_bwd` in plain PyTorch ops in x's dtype, as the JAX backward is plain
+XLA in the model's dtype, and computes only the cotangents asked for;
 its vmap rule folds a vmapped x into N (one launch), as a JAX batching rule
 would.
 """
@@ -36,13 +42,24 @@ TAPS = 5
 PAD = 2
 SOURCE = "depthwise_segment"
 
-# kernel launches since the last reset; the plain version never counts
-launches = 0
+# the kernel's C entry point and its channel multiple (a 16-byte TMA row
+# pitch) for each dtype it takes
+ENTRY = {torch.float32: ("gat_depthwise_segment_f32", 4),
+         torch.bfloat16: ("gat_depthwise_segment_bf16", 8)}
+
+# kernel launches since the last reset, by the dtype of x (one build of the
+# kernel each); the plain version never counts. `launches` is their sum.
+launches_by_dtype = dict.fromkeys(ENTRY, 0)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    launches_by_dtype.update(dict.fromkeys(ENTRY, 0))
+
+
+def __getattr__(name: str):
+    if name == "launches":
+        return sum(launches_by_dtype.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def taps_oihw(taps: torch.Tensor) -> torch.Tensor:
@@ -55,10 +72,13 @@ def _affine(v: torch.Tensor) -> torch.Tensor:
 
 
 def depthwise_silu_segment_plain(x, taps, s0, b0, s1, b1):
-    """The segment in plain PyTorch: silu, depthwise conv (padding 2), silu."""
-    r = F.silu(x * _affine(s0) + _affine(b0))
+    """The segment in plain PyTorch: silu, depthwise conv (padding 2), silu,
+    in float32 (a bfloat16 x is widened and y rounded once, at the end, as
+    in the Pallas kernel); y in x's dtype."""
+    taps, s0, b0, s1, b1 = (t.float() for t in (taps, s0, b0, s1, b1))
+    r = F.silu(x.float() * _affine(s0) + _affine(b0))
     r = F.conv2d(r, taps_oihw(taps), padding=PAD, groups=x.shape[1])
-    return F.silu(r * _affine(s1) + _affine(b1))
+    return F.silu(r * _affine(s1) + _affine(b1)).to(x.dtype)
 
 
 _lib_handle = None
@@ -67,9 +87,11 @@ _lib_handle = None
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of a built `csrc/depthwise_segment.cu` (or
     of another version of it, as an A/B builds) on `lib`; returns `lib`."""
-    lib.gat_depthwise_segment_f32.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.gat_depthwise_segment_f32.restype = ctypes.c_int
+    for name, _ in ENTRY.values():
+        if hasattr(lib, name):  # an earlier source (an A/B) has float32 only
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -96,23 +118,26 @@ def _check(x, taps, s0, b0, s1, b1):
     tensors = (x, taps, s0, b0, s1, b1)
     if any(t.device != x.device for t in tensors):
         raise ValueError("all arguments must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the segment takes float32 tensors")
+    if any(t.dtype not in ENTRY for t in tensors):
+        raise TypeError("the segment takes float32 or bfloat16 tensors, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
 
 
 def _launch(x, taps, s0, b0, s1, b1, lib=None):
     # layout checks here, on the tensors the kernel gets: under torch.func.vmap
     # the public function sees batched tensors, whose layout cannot be asked.
     # `lib`: another build of the kernel (`declare`d), as an A/B launches it
-    global launches
     n, c, h, w = x.shape
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be contiguous in torch.channels_last format")
     if not all(t.is_contiguous() for t in (taps, s0, b0, s1, b1)):
         raise ValueError("taps and affines must be contiguous")
-    if c % 4 or x.data_ptr() % 16:
-        raise ValueError(f"the kernel's TMA staging needs C a multiple of 4 and x 16-byte "
-                         f"aligned, got C={c}")
+    if x.dtype not in ENTRY or any(t.dtype != torch.float32 for t in (taps, s0, b0, s1, b1)):
+        raise TypeError("the kernel takes a float32 or bfloat16 x and float32 taps and affines")
+    entry, width = ENTRY[x.dtype]
+    if c % width or x.data_ptr() % 16:
+        raise ValueError(f"the kernel's TMA staging needs C a multiple of {width} in {x.dtype} "
+                         f"and x 16-byte aligned, got C={c}")
     if n > 65535:
         raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -121,7 +146,7 @@ def _launch(x, taps, s0, b0, s1, b1, lib=None):
     if lib is None:
         lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gat_depthwise_segment_f32(
+    rc = getattr(lib, entry)(
         x.data_ptr(), taps.data_ptr(), s0.data_ptr(), b0.data_ptr(),
         s1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h, w, c,
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
@@ -129,7 +154,7 @@ def _launch(x, taps, s0, b0, s1, b1, lib=None):
     if rc != 0:
         raise RuntimeError("depthwise_segment kernel launch failed: "
                            + lib.gat_cuda_error_string(rc).decode())
-    launches += 1
+    launches_by_dtype[x.dtype] += 1
     return y
 
 
@@ -154,9 +179,12 @@ class _Segment(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # recompute, as the JAX VJP `_seg_bwd` does; only the cotangents
-        # asked for (an attack freezes the weights and pulls dx alone)
-        x, taps, s0, b0, s1, b1 = ctx.saved_tensors
+        # recompute, as the JAX VJP `_seg_bwd` does, in x's dtype (the float32
+        # weights narrowed to it: the JAX backward runs in the model's dtype);
+        # only the cotangents asked for (an attack freezes the weights and
+        # pulls dx alone), each in its input's dtype
+        x, *weights = ctx.saved_tensors
+        taps, s0, b0, s1, b1 = (t.to(x.dtype) for t in weights)
         need_x, need_taps, need_s0, need_b0, need_s1, need_b1 = ctx.needs_input_grad
         c = x.shape[1]
         wk = taps_oihw(taps)
@@ -185,7 +213,8 @@ class _Segment(torch.autograd.Function):
                 torch.stack([(xap[:, :, i:i + h, j:j + w] * dacc).sum(dims)
                              for j in range(TAPS)])
                 for i in range(TAPS)])
-        return dx, dtaps, ds0, db0, ds1, db1
+        return (dx, *(None if d is None else d.to(w.dtype)
+                      for d, w in zip((dtaps, ds0, db0, ds1, db1), weights)))
 
     @staticmethod
     def vmap(info, in_dims, x, taps, s0, b0, s1, b1):
@@ -209,8 +238,8 @@ class _Segment(torch.autograd.Function):
 def depthwise_silu_segment(x, taps, s0, b0, s1, b1):
     """silu(DW5x5(silu(x*s0+b0)) * s1 + b1) in one pass; differentiable.
 
-    x: (N, C, H, W), channels_last on CUDA; taps (5, 5, C); affines (C,).
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-    version."""
+    x: (N, C, H, W), float32 or bfloat16, channels_last on CUDA; taps
+    (5, 5, C); affines (C,), cast to float32 here. A CUDA tensor launches the
+    kernel of x's dtype (or raises); a CPU tensor runs the plain version."""
     _check(x, taps, s0, b0, s1, b1)
-    return _Segment.apply(x, taps, s0, b0, s1, b1)
+    return _Segment.apply(x, *(t.float() for t in (taps, s0, b0, s1, b1)))

@@ -4,18 +4,22 @@ as a hand-written CUDA kernel for Hopper (`csrc/upfirdn_blur.cu`, K2).
 Replaces the Pallas TPU kernel of gen_adversarial_tpu/ops/pallas_upfirdn.py
 (`pallas_blur` / `pallas_blur_diff`, body `_blur_kernel`). What bounds it on
 an H100 is memory: per element about one read of x and one write of y
-(8 bytes in float32) against 2 * taps multiply-adds. The kernel reads x once
-into a shared-memory tile with its halo, zero-padding at the edges as it
-loads (no padded copy of x), runs the vertical then the horizontal pass, and
-writes y once (see the source's header).
+(8 bytes in float32, 4 in bfloat16) against 2 * taps multiply-adds. The
+kernel reads x once into a shared-memory tile with its halo, zero-padding at
+the edges as it loads (no padded copy of x), runs the vertical then the
+horizontal pass, and writes y once (see the source's header).
 
 `x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
-reads it as NHWC), float32. `taps` are the 1-D separable factor as host
-numbers (Python floats or a numpy array), in upfirdn order: the kernel flips
-them, as the JAX function does. `pad` is (pad0, pad1) on both spatial axes.
+reads it as NHWC), float32 or bfloat16 (the model's dtype, which y keeps;
+the sums are float32 in both, and a bfloat16 y is rounded once, as it is
+stored, by the kernel and by the plain version alike). `taps` are the 1-D
+separable factor as host numbers (Python floats or a numpy array), in
+upfirdn order: the kernel flips them, as the JAX function does. `pad` is
+(pad0, pad1) on both spatial axes.
 
-On a CUDA tensor `upfirdn_blur` launches the kernel or raises; a CPU tensor
-takes `blur_plain`. The gradient (`torch.autograd.Function`) is the JAX
+On a CUDA tensor `upfirdn_blur` launches the kernel of x's dtype
+(`gat_upfirdn_blur_f32` or `_bf16`) or raises; a CPU tensor takes
+`blur_plain`. The gradient (`torch.autograd.Function`) is the JAX
 custom VJP `_blur_bwd`: the same blur of the cotangent with the taps flipped
 and pad (taps - 1 - pad0, taps - 1 - pad1), through the same kernel. The taps
 are fixed constants and get no cotangent. The Function works under
@@ -35,14 +39,22 @@ from gen_adversarial_tpu_torch.ops.upfirdn2d import upfirdn2d
 
 SOURCE = "upfirdn_blur"
 KERNEL_TAPS = (3, 4)  # the taps counts the kernel is instantiated for
+# the kernel's C entry point for each dtype it takes
+ENTRY = {torch.float32: "gat_upfirdn_blur_f32", torch.bfloat16: "gat_upfirdn_blur_bf16"}
 
-# kernel launches since the last reset; the plain version never counts
-launches = 0
+# kernel launches since the last reset, by the dtype of x (one build of the
+# kernel each); the plain version never counts. `launches` is their sum.
+launches_by_dtype = dict.fromkeys(ENTRY, 0)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    launches_by_dtype.update(dict.fromkeys(ENTRY, 0))
+
+
+def __getattr__(name: str):
+    if name == "launches":
+        return sum(launches_by_dtype.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def out_size(size: int, taps: int, pad: Sequence[int]) -> int:
@@ -51,9 +63,12 @@ def out_size(size: int, taps: int, pad: Sequence[int]) -> int:
 
 def blur_plain(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
     """The blur in plain PyTorch: two 1-D depthwise convolutions with flipped
-    taps after zero padding (ops/upfirdn2d.upfirdn2d with a 1-D kernel)."""
+    taps after zero padding (ops/upfirdn2d.upfirdn2d with a 1-D kernel), in
+    float32 (a bfloat16 x is widened, and y rounded once at the end, as the
+    kernel does); y in x's dtype."""
     k = torch.tensor([float(t) for t in taps], dtype=torch.float32, device=x.device)
-    return upfirdn2d(x, k, up=1, down=1, pad=tuple(pad))
+    wide = x.float() if x.dtype == torch.bfloat16 else x
+    return upfirdn2d(wide, k, up=1, down=1, pad=tuple(pad)).to(x.dtype)
 
 
 _lib_handle = None
@@ -65,10 +80,12 @@ def _lib():
     if _lib_handle is None:
         from gen_adversarial_tpu_torch.core.cuda_build import load
         lib = load(SOURCE)[SOURCE].lib
-        lib.gat_upfirdn_blur_f32.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-            + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.gat_upfirdn_blur_f32.restype = ctypes.c_int
+        for name in ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = (
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gat_cuda_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -85,8 +102,8 @@ def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]):
         raise ValueError(f"{len(taps)} taps with pad {tuple(pad)} leave no output "
                          f"of a {h}x{w} image")
     if x.is_cuda:
-        if x.dtype != torch.float32:
-            raise TypeError("the blur kernel takes float32 tensors")
+        if x.dtype not in ENTRY:
+            raise TypeError(f"the blur kernel takes float32 or bfloat16 tensors, got {x.dtype}")
         if len(taps) not in KERNEL_TAPS:
             raise ValueError(f"the blur kernel takes {KERNEL_TAPS} taps, got {len(taps)}")
         if not x.is_contiguous(memory_format=torch.channels_last):
@@ -96,7 +113,6 @@ def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]):
 
 
 def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
-    global launches
     n, c, h, w = x.shape
     y = torch.empty((n, c, out_size(h, len(taps), pad), out_size(w, len(taps), pad)),
                     device=x.device, dtype=x.dtype, memory_format=torch.channels_last)
@@ -105,14 +121,14 @@ def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
     lib = _lib()
     host_taps = (ctypes.c_float * len(taps))(*taps)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gat_upfirdn_blur_f32(
+    rc = getattr(lib, ENTRY[x.dtype])(
         x.data_ptr(), y.data_ptr(), n, h, w, c, int(pad[0]), int(pad[1]), host_taps,
         len(taps), x.device.index if x.device.index is not None else torch.cuda.current_device(),
         stream)
     if rc != 0:
         raise RuntimeError("upfirdn_blur kernel launch failed: "
                            + lib.gat_cuda_error_string(rc).decode())
-    launches += 1
+    launches_by_dtype[x.dtype] += 1
     return y
 
 
@@ -156,6 +172,7 @@ class _Blur(torch.autograd.Function):
 def upfirdn_blur(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
     """upfirdn2d(x, taps, up=1, down=1, pad) in one pass; differentiable in x.
 
-    x: (N, C, H, W), channels_last float32 on CUDA. A CUDA tensor launches
-    the kernel (or raises); a CPU tensor runs the plain version."""
+    x: (N, C, H, W), float32 or bfloat16, channels_last on CUDA. A CUDA
+    tensor launches the kernel of its dtype (or raises); a CPU tensor runs the
+    plain version."""
     return _Blur.apply(x, tuple(float(t) for t in taps), tuple(int(p) for p in pad), False)

@@ -1,10 +1,12 @@
 """Where a defense call's time goes on the GPU: one torch.profiler trace of
 the EoT-32 call of the ids flagship (batch 4, initial noise eps 2.0), of
 the gender defense (batch 2 at 256 px, initial noise eps 4.0) or of the cars
-defense (batch 4 at 128 px, initial noise eps 4.0), float32, random weights
-from seed 0: one warm-up call, 2 calls untraced, then 2 calls traced.
+defense (batch 4 at 128 px, initial noise eps 4.0), random weights from
+seed 0, in float32 (TF32 off) or in bfloat16 (core/precision.defense_astype
+after the build): one warm-up call, 2 calls untraced, then 2 calls traced.
 
     python3 -m gen_adversarial_tpu_torch.profile_flagship [--family ids|gender|cars]
+        [--dtype float32|bfloat16]
 
 Prints one JSON line: the card (name and power limit as nvidia-smi gives
 them), the host wall time of the same number of calls untraced and traced
@@ -12,8 +14,9 @@ them), the host wall time of the same number of calls untraced and traced
 traced kernels and its share of the untraced wall time (the busy share;
 1 minus it is the idle share), the device time by kind of kernel (the K1
 segment kernel, the K2 blur kernel, convolutions, matrix products,
-elementwise and reductions, other) and the ten kernels that took the most
-time. Needs a CUDA device; exits non-zero without one.
+elementwise and reductions, other), the part of the convolutions' time
+that cuDNN spends in its NCHW <-> NHWC layout transposes, and the ten
+kernels that took the most time. Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -41,6 +44,24 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def is_layout_transpose(name: str) -> bool:
+    """cuDNN's NCHW <-> NHWC transposes (counted among the convolutions)."""
+    n = name.lower()
+    return "nchwtonhwc" in n or "nhwctonchw" in n
+
+
+def kernel_times(prof, torch) -> dict:
+    """The device kernels of a torch.profiler trace: name -> (summed us, count)."""
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        total, count = kernels.get(evt.name, (0.0, 0))
+        kernels[evt.name] = (total + evt.time_range.elapsed_us(), count + 1)
+    return kernels
+
+
 CALLS = 2
 SEED = 0
 # family -> (batch, image size, initial noise eps)
@@ -50,7 +71,9 @@ FAMILIES = {"ids": (4, 64, 2.0), "gender": (2, 256, 4.0), "cars": (4, 128, 4.0)}
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--family", choices=sorted(FAMILIES), default="ids")
-    family = parser.parse_args(argv).family
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    args = parser.parse_args(argv)
+    family = args.family
     batch, size, eps = FAMILIES[family]
     import torch
     if not torch.cuda.is_available():
@@ -59,6 +82,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from gen_adversarial_tpu_torch.cars import cars_defense
+    from gen_adversarial_tpu_torch.core.precision import defense_astype
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import flagship
     from gen_adversarial_tpu_torch.gender import gender_defense
@@ -71,6 +95,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     make = {"ids": flagship, "gender": gender_defense, "cars": cars_defense}[family]
     defense = make(initial_noise_eps=eps, device=dev, seed=SEED)
+    if args.dtype == "bfloat16":
+        defense_astype(defense, torch.bfloat16)
     net = eot_wrap(defense, eot_steps=32)
     images = torch.rand(batch, size, size, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -90,27 +116,22 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_s = time.monotonic() - t
 
-    kernels = {}
-    for evt in prof.events():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        total, count = kernels.get(evt.name, (0.0, 0))
-        kernels[evt.name] = (total + evt.time_range.elapsed_us(), count + 1)
+    kernels = kernel_times(prof, torch)
     device_s = sum(us for us, _ in kernels.values()) / 1e6
     by_kind = {}
     for name, (us, _) in kernels.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + us / 1e6
+    transpose_s = sum(us for name, (us, _) in kernels.items() if is_layout_transpose(name)) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi.stdout.strip() or "not available",
         "family": family, "calls": CALLS, "batch": batch, "image_size": size,
-        "initial_noise_eps": eps, "eot_steps": 32, "dtype": "float32",
+        "initial_noise_eps": eps, "eot_steps": 32, "dtype": args.dtype,
         "wall_s": wall_s, "untraced_wall_s": untraced_s,
         "device_kernel_s": device_s if kernels else "not measured",
         "busy_share": device_s / untraced_s if kernels else "not measured",
-        "by_kind_s": by_kind,
+        "by_kind_s": by_kind, "layout_transpose_s": transpose_s,
         "top_kernels": [{"name": n[:120], "s": us / 1e6, "count": c}
                         for n, (us, c) in top],
     }))

@@ -23,6 +23,7 @@ from torch import nn
 from torch.func import vjp
 
 from gen_adversarial_tpu.core.config import DefenseConfig
+from gen_adversarial_tpu.core.precision import defense_astype as jax_defense_astype
 from gen_adversarial_tpu.defenses.base import MLVGMDefense as JaxDefense
 from gen_adversarial_tpu.defenses.base import make_classifier_apply as jax_classifier_apply
 from gen_adversarial_tpu.defenses.eot import eot_wrap as jax_eot_wrap
@@ -33,6 +34,7 @@ from gen_adversarial_tpu.models.style_transformer.model import (
     StyleTransformer as JaxStyleTransformer)
 from gen_adversarial_tpu_torch.cars import (
     CARS_ALPHAS, IMAGE_SIZE, N_CLASSES, cars_alphas, cars_defense)
+from gen_adversarial_tpu_torch.core.precision import defense_astype
 from gen_adversarial_tpu_torch.defenses.base import MLVGMDefense, make_classifier_apply
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.defenses.purify import make_trans_purify_split
@@ -108,6 +110,10 @@ def test_resnext50_has_the_torchvision_widths():
 
 @pytest.fixture(scope="module")
 def models():
+    return build_models()
+
+
+def build_models():
     """JAX and port StyleTransformer(16) + a one-block-per-stage ResNeXt,
     same weights."""
     jtrans = JaxStyleTransformer(output_size=SIZE)
@@ -123,14 +129,16 @@ def models():
                 alphas=cars_alphas(N_CODES))
 
 
-def _cars_pair(models, noise_eps, b=B, float64=False):
+def _cars_pair(models, noise_eps, b=B, float64=False, bf16=False):
     """The JAX and the port cars defense (MLVGMDefense + the Style-Transformer
     split + eot_wrap over EOT draws, normalize_before_purify) with the same
     numpy draws: the JAX side looks each draw up by its key
     (keyed_normal_call), the port replays them folded into its batch,
     draw-major (the mix noise (n_codes, B, 512) on its batch axis 1).
     `float64` gives both sides float64 weights and draws (build and call the
-    JAX side inside jax.enable_x64(True)). Returns (jax_net(defense, x), the JAX defense,
+    JAX side inside jax.enable_x64(True)). `bf16` casts both defenses with
+    their package's defense_astype (the port's on copies of its modules).
+    Returns (jax_net(defense, x), the JAX defense,
     jax_call, port_net(x)): jax_net takes the defense as an argument, so a
     jit of it compiles the weights as inputs, not as constants."""
     rng = np.random.RandomState(6)
@@ -151,17 +159,23 @@ def _cars_pair(models, noise_eps, b=B, float64=False):
         purify_encode_apply=enc, purify_decode_apply=dec,
         classifier_apply=jax_classifier_apply(models["jclf"]), image_size=IMAGE_SIZE,
         initial_noise_eps=noise_eps, normalize_before_purify=True)
+    if bf16:
+        jdef = jax_defense_astype(jdef)
 
     dtype = torch.float64 if float64 else torch.float32
     draws = ([np.concatenate(noise)] if noise_eps > 0 else []) + [np.concatenate(mix, axis=1)]
     ttrans, tclf = models["ttrans"], models["tclf"]
+    if float64 or bf16:
+        ttrans, tclf = copy.deepcopy(ttrans), copy.deepcopy(tclf)
     if float64:
-        ttrans, tclf = copy.deepcopy(ttrans).double(), copy.deepcopy(tclf).double()
+        ttrans, tclf = ttrans.double(), tclf.double()
     tenc, tdec = make_trans_purify_split(ttrans)
     tdef = MLVGMDefense(
         ttrans, tclf, torch.tensor(models["alphas"], dtype=dtype), tenc, tdec,
         make_classifier_apply(tclf), initial_noise_eps=noise_eps,
         normalize_before_purify=True, image_size=IMAGE_SIZE)
+    if bf16:
+        defense_astype(tdef)
     tnet = eot_wrap(tdef, eot_steps=EOT)
     return ((lambda d, x: jax_eot_wrap(d, eot_steps=EOT)(key, x)), jdef, jax_call,
             (lambda x: tnet(x, [torch.tensor(d, dtype=dtype) for d in draws])))

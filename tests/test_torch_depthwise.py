@@ -17,6 +17,7 @@ from torch.func import grad, vjp, vmap
 from gen_adversarial_tpu.ops.pallas_depthwise import (
     depthwise_silu_segment as jax_segment, reference_segment)
 from gen_adversarial_tpu_torch.ops import depthwise as k1
+from tests.torch_port_helpers import assert_within_bf16_gap
 
 # float32 on both sides; the depthwise sums 25 products in another order
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -166,6 +167,63 @@ def test_x_only_backward_skips_the_weight_cotangents(monkeypatch, route):
     k1.depthwise_silu_segment(*full).backward(g)
     assert len(returned) == 2 and all(r is not None for r in returned[1])
     torch.testing.assert_close(dx, full[0].grad, rtol=0, atol=0)
+
+
+# bfloat16 forward against the Pallas kernel in bfloat16 (interpret mode):
+# both compute in float32 inside and round y once; torch's bfloat16
+# defaults of assert_close (rtol 1.6e-2, 2 to 4 bfloat16 ulps; atol 1e-5)
+BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
+
+
+def _bf16(args):
+    """The inputs rounded to bfloat16: numpy float32 arrays for JAX (cast
+    there) and the port's tensors."""
+    rounded = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in args]
+    return [jnp.asarray(a, jnp.bfloat16) for a in rounded], [
+        t.to(torch.bfloat16) for t in _torch_args(rounded)]
+
+
+def test_bf16_forward_matches_pallas_interpret():
+    """The plain version on bfloat16 inputs (C = 128, the Pallas kernel's
+    lane width) against the Pallas kernel in interpret mode on the same
+    bfloat16 inputs; y is bfloat16 on both sides."""
+    jargs, targs = _bf16(_inputs(128, seed=21))
+    want = _jax_fn("pallas_interpret")(*jargs)
+    assert want.dtype == jnp.bfloat16
+    got = k1.depthwise_silu_segment(*targs)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.permute(0, 2, 3, 1).float(),
+                               torch.tensor(np.asarray(want.astype(jnp.float32))), **BF16_TOL)
+
+
+def test_bf16_x_only_backward_within_jax_bf16_gap():
+    """dx of the segment in bfloat16 (the weights frozen, as an attack
+    differentiates it): the port's backward in bfloat16 and jax.vjp of the
+    Pallas kernel's custom VJP on the same bfloat16 inputs, each against the
+    float32 VJP of those inputs. They round at other places: the JAX VJP
+    rounds after each of its shift-sums' 25 multiply-adds (1.0e-2 relative
+    L2 from float32), the port's depthwise convolutions sum in float32 and
+    round once (6.4e-3), so elementwise they differ by up to 2 % of the
+    largest entry. The port may be at most BF16_GAP_FACTOR x as far from
+    float32 as JAX is."""
+    args = _inputs(128, seed=22)
+    jargs, targs = _bf16(args)
+    g = np.random.RandomState(23).randn(*jargs[0].shape).astype(np.float32)
+    jg = jnp.asarray(g, jnp.bfloat16)
+    _, vjp_fn = jax.vjp(lambda v: _jax_fn("pallas_interpret")(v, *jargs[1:]), jargs[0])
+    (want16,) = vjp_fn(jg)
+    assert want16.dtype == jnp.bfloat16
+    wide = [a.astype(jnp.float32) for a in jargs]
+    _, vjp32 = jax.vjp(lambda v: reference_segment(v, *wide[1:]), wide[0])
+    (want32,) = vjp32(jg.astype(jnp.float32))
+    x, *w = targs
+    x.requires_grad_(True)
+    (got,) = torch.autograd.grad(k1.depthwise_silu_segment(x, *w), x,
+                                 torch.tensor(np.asarray(jg.astype(jnp.float32)))
+                                 .permute(0, 3, 1, 2).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert_within_bf16_gap(got.permute(0, 2, 3, 1).float().numpy(),
+                           np.asarray(want16.astype(jnp.float32)), np.asarray(want32), "dx")
 
 
 def test_ragged_spatial_size_matches_jax():

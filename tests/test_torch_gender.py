@@ -9,6 +9,7 @@ gradient (torch.func.vjp against jax.vjp, with a bound measured from JAX's
 own float32-vs-float64 gap). Also: the 18 alphas against the YAML config,
 and a CPU rehearsal of the factory."""
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from torch.func import vjp
 
 from gen_adversarial_tpu.core.config import DefenseConfig
+from gen_adversarial_tpu.core.precision import defense_astype as jax_defense_astype
 from gen_adversarial_tpu.defenses.base import MLVGMDefense as JaxDefense
 from gen_adversarial_tpu.defenses.base import make_classifier_apply as jax_classifier_apply
 from gen_adversarial_tpu.defenses.eot import eot_wrap as jax_eot_wrap
@@ -27,6 +29,7 @@ from gen_adversarial_tpu.defenses.purify import make_e4e_purify_split as jax_spl
 from gen_adversarial_tpu.models.classifiers import ResNet50 as JaxResNet50
 from gen_adversarial_tpu.models.classifiers import ResNetBackbone as JaxResNet
 from gen_adversarial_tpu.models.e4e.psp import PSP as JaxPSP
+from gen_adversarial_tpu_torch.core.precision import defense_astype
 from gen_adversarial_tpu_torch.defenses.base import MLVGMDefense, make_classifier_apply
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.defenses.purify import make_e4e_purify_split
@@ -70,6 +73,10 @@ def test_resnet50_matches_jax():
 
 @pytest.fixture(scope="module")
 def models():
+    return build_models()
+
+
+def build_models():
     """JAX and port PSP(32) + a one-block-per-stage ResNet, same weights."""
     jpsp = JaxPSP(stylegan_size=SIZE)
     psp_vars = random_variables(jax.eval_shape(
@@ -83,7 +90,7 @@ def models():
                 alphas=gender_alphas(8))
 
 
-def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
+def _gender_pair(models, noise_eps, chunk, eot=4, float64=False, bf16=False):
     """The JAX and the port gender defense (MLVGMDefense + the E4E split +
     eot_wrap, normalize_before_purify) with the same numpy draws. JAX draws
     inside a vmap over keys, so `jax_call(fn)` runs fn with jax.random.normal
@@ -92,7 +99,9 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
     the same draws folded into its batch, draw-major (the mix noise
     (n_codes, B, 512) on its batch axis 1), chunk by chunk. `float64` gives
     the JAX side float64 variables (build and call it inside
-    jax.enable_x64(True)). Returns (jax_net(defense, x), the JAX defense,
+    jax.enable_x64(True)). `bf16` casts both defenses with their package's
+    defense_astype (the port's on copies of its modules). Returns
+    (jax_net(defense, x), the JAX defense,
     jax_call, port_net(x)): jax_net takes the defense as an argument, so a
     jit of it compiles the weights as inputs, not as constants."""
     n_codes = 8
@@ -112,6 +121,8 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
         purify_encode_apply=enc, purify_decode_apply=dec,
         classifier_apply=jax_classifier_apply(models["jclf"]), image_size=IMAGE,
         initial_noise_eps=noise_eps, normalize_before_purify=True)
+    if bf16:
+        jdef = jax_defense_astype(jdef)
 
     per = chunk or eot
     draws = []
@@ -120,11 +131,16 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False):
         if noise_eps > 0:
             draws.append(np.concatenate([noise[d] for d in ds]))
         draws.append(np.concatenate([mix[d] for d in ds], axis=1))
-    tenc, tdec = make_e4e_purify_split(models["tpsp"])
+    tpsp, tclf = models["tpsp"], models["tclf"]
+    if bf16:
+        tpsp, tclf = copy.deepcopy(tpsp), copy.deepcopy(tclf)
+    tenc, tdec = make_e4e_purify_split(tpsp)
     tdef = MLVGMDefense(
-        models["tpsp"], models["tclf"], torch.tensor(models["alphas"]), tenc, tdec,
-        make_classifier_apply(models["tclf"]), initial_noise_eps=noise_eps,
+        tpsp, tclf, torch.tensor(models["alphas"]), tenc, tdec,
+        make_classifier_apply(tclf), initial_noise_eps=noise_eps,
         normalize_before_purify=True)
+    if bf16:
+        defense_astype(tdef)
     tnet = eot_wrap(tdef, eot_steps=eot, chunk=chunk)
     return ((lambda d, x: jax_eot_wrap(d, eot_steps=eot, chunk=chunk)(key, x)), jdef,
             jax_call, (lambda x: tnet(x, [torch.tensor(d) for d in draws])))

@@ -12,6 +12,7 @@ import pytest
 import torch
 from torch.func import vjp, vmap
 
+from gen_adversarial_tpu_torch.core.precision import BF16_GAP_FACTOR
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.flagship import flagship
 from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
@@ -24,6 +25,10 @@ K1_TOL = dict(rtol=1e-5, atol=1e-5)
 K2_TOL = dict(rtol=1e-5, atol=1e-5)
 # a whole small defense, GPU vs CPU: ~30 float32 layers in other orders
 DEFENSE_TOL = dict(rtol=1e-4, atol=1e-5)
+# bfloat16 kernel vs its plain version: both sum in float32 and round y once,
+# so they differ by at most one bfloat16 ulp (2**-8 relative; torch's
+# bfloat16 defaults of assert_close)
+BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
 
 
 def _need_card():
@@ -255,3 +260,97 @@ def test_cuda_blur_past_2_to_the_31_elements():
     torch.cuda.synchronize()
     for part in (slice(0, 2), slice(62, 64)):
         torch.testing.assert_close(got[part], k2.blur_plain(x[part], taps, pad), **K2_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_kernels_match_plain_versions():
+    """The bfloat16 builds of K1 (at the flagship's seven shapes, N = 4, and
+    ragged sizes with widths that are multiples of 8) and of K2 (the
+    up-conv blur, ragged sizes, asymmetric and 3-tap filters) against their
+    plain versions, which widen to float32 and round once."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = [(4, c, h, h) for c, h in FLAGSHIP_SEGMENTS] + [(1, 40, 13, 5), (3, 48, 17, 33)]
+    for n, c, h, w in shapes:
+        x = _channels_last((n, c, h, w), gen).bfloat16()
+        taps = (torch.randn(5, 5, c, device="cuda", generator=gen) * 0.2).bfloat16()
+        aff = [(torch.randn(c, device="cuda", generator=gen) * 0.5 + 1).bfloat16()
+               for _ in range(4)]
+        before = k1.launches
+        got = k1.depthwise_silu_segment(x, taps, *aff)
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1 and got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, k1.depthwise_silu_segment_plain(x, taps, *aff),
+                                   **BF16_TOL)
+    up = (0.25, 0.75, 0.75, 0.25)
+    for shape, taps, pad in [((4, 512, 17, 17), up, (1, 1)), ((2, 32, 65, 65), up, (1, 1)),
+                             ((3, 40, 13, 29), (0.1, 0.2, 0.3, 0.4), (2, 1)),
+                             ((2, 96, 19, 7), (1 / 7, 2 / 7, 4 / 7), (1, 1))]:
+        x = _channels_last(shape, gen).bfloat16()
+        before = k2.launches
+        got = k2.upfirdn_blur(x, taps, pad)
+        torch.cuda.synchronize()
+        assert k2.launches == before + 1 and got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, k2.blur_plain(x, taps, pad), **BF16_TOL)
+        # the backward: the bfloat16 kernel again
+        xk = x.clone().requires_grad_()
+        g = _channels_last(tuple(got.shape), gen).bfloat16()
+        k2.upfirdn_blur(xk, taps, pad).backward(g)
+        xp = x.clone().requires_grad_()
+        k2.blur_plain(xp, taps, pad).backward(g)
+        torch.testing.assert_close(xk.grad, xp.grad, **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_segment_refuses_what_it_cannot_stage():
+    """In bfloat16 a TMA row pitch of C x 2 bytes is a multiple of 16 only
+    for C a multiple of 8: C = 12 is refused (float32 takes it), not staged
+    another way nor widened to float32. float16 and float64 are refused."""
+    _need_card()
+    x = torch.randn(1, 12, 8, 8, device="cuda").contiguous(memory_format=torch.channels_last)
+    taps = torch.randn(5, 5, 12, device="cuda")
+    aff = [torch.ones(12, device="cuda") for _ in range(4)]
+    k1.depthwise_silu_segment(x, taps, *aff)
+    before = k1.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k1.depthwise_silu_segment(x.bfloat16(), taps, *aff)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            k1.depthwise_silu_segment(x.to(dtype), taps, *aff)
+        with pytest.raises(TypeError):
+            k2.upfirdn_blur(x.to(dtype), (0.25, 0.75, 0.75, 0.25), (1, 1))
+    assert k1.launches == before
+
+
+@pytest.mark.gpu
+def test_small_bf16_defense_on_gpu_against_cpu():
+    """The small ids defense of test_small_defense_on_gpu_matches_cpu (its
+    hidden widths 192, 96, 48 and 24 are multiples of 8) in bfloat16 on the
+    card: its logits at most BF16_GAP_FACTOR x as far from the CPU's float32
+    ones as the CPU's own bfloat16 run is, and through K1."""
+    from gen_adversarial_tpu_torch.core.precision import defense_astype
+    _need_card()
+    cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2,
+                     num_groups_per_scale=2, is_adaptive=False, num_cells_per_group=1,
+                     num_latent_per_group=4, num_mixtures=3)
+    kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=(16, "M", 32, "M"),
+              n_classes=10)
+    # three builds from one seed: a defense's purify halves hold its modules,
+    # so a deepcopy would share them
+    cpu, cpu16 = flagship(device="cpu", **kw), flagship(device="cpu", **kw)
+    gpu = flagship(device="cuda", **kw)
+    eot, b = 4, 2
+    rng = np.random.RandomState(4)
+    x = torch.tensor(rng.rand(b, 32, 32, 3).astype(np.float32))
+    shapes = [(eot * b, 32, 32, 3)] + eps_shapes(cfg, eot * b)
+    draws = [torch.tensor(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    with torch.no_grad():
+        want = eot_wrap(cpu, eot)(x, draws)
+        cpu16 = eot_wrap(defense_astype(cpu16), eot)(x, draws)
+        gpu.load_state_dict(cpu.state_dict())
+        before = k1.launches
+        got = eot_wrap(defense_astype(gpu), eot)(x.cuda(), draws).cpu()
+    assert k1.launches - before == len(cfg.decoder_segment_shapes())
+    assert got.dtype == torch.float32
+    gap = (cpu16 - want).abs().max().item()
+    assert (got - want).abs().max().item() <= BF16_GAP_FACTOR * gap

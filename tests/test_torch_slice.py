@@ -267,7 +267,7 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "ops/blur.py", "defenses/ablations.py",
     "attacks/utils.py", "attacks/fgsm.py", "attacks/deepfool.py", "attacks/cw.py",
     "attacks/apgd.py", "attacks/fab.py", "attacks/autoattack.py", "core/config.py",
-    "eval/factory.py",
+    "eval/factory.py", "core/precision.py",
 ]
 
 

@@ -24,7 +24,7 @@ from gen_adversarial_tpu.ops.upfirdn2d import make_fir_kernel as jax_make_fir_ke
 from gen_adversarial_tpu.ops.upfirdn2d import upfirdn2d as jax_upfirdn2d
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
 from gen_adversarial_tpu_torch.ops.upfirdn2d import make_fir_kernel, upfirdn2d
-from tests.torch_port_helpers import to_nchw, to_nhwc
+from tests.torch_port_helpers import rel_l2, to_nchw, to_nhwc
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 BINOMIAL4 = np.array([1.0, 3.0, 3.0, 1.0]) / 8.0
@@ -109,6 +109,47 @@ def test_func_vmap_matches_a_loop(transform):
         got = vmap(fn)(batch)
         want = torch.stack([fn(v) for v in batch])
     torch.testing.assert_close(got, want, **TOL)
+
+
+# bfloat16: asymmetric taps that bfloat16 holds exactly (the Pallas kernel
+# casts its taps to the image's dtype, the port keeps them float32)
+ASYM4_BF16 = np.array([1.0, 2.0, 3.0, 2.0]) / 8.0
+ASYM3_BF16 = np.array([1.0, 3.0, 4.0]) / 8.0
+# the port against Pallas in bfloat16: torch's bfloat16 rtol of
+# assert_close, 2 to 4 bfloat16 ulps
+BF16_RTOL = 1.6e-2
+
+
+@pytest.mark.parametrize("taps,pad", [(ASYM4_BF16, (1, 1)), (ASYM4_BF16, (2, 1)),
+                                      (ASYM3_BF16, (2, 2))])
+def test_bf16_blur_and_x_gradient_against_pallas_interpret(taps, pad):
+    """The blur and its x-gradient on bfloat16 inputs: the port's plain
+    version (float32 sums, y rounded once) and `pallas_blur` /
+    `pallas_blur_diff` in interpret mode (bfloat16 scratch: every
+    multiply-add rounds), each against the float32 result on the same
+    bfloat16-rounded inputs. The port is at most as far from it as Pallas
+    is, and within BF16_RTOL of Pallas (relative L2)."""
+    x16 = jnp.asarray(_x((2, 10, 7, 8), seed=6), jnp.bfloat16)
+    x = np.asarray(x16.astype(jnp.float32))
+    k = jnp.asarray(taps.astype(np.float32))
+    h, w = (k2.out_size(n, len(taps), pad) for n in (10, 7))
+    g16 = jnp.asarray(_x((2, h, w, 8), seed=7), jnp.bfloat16)
+    g = np.asarray(g16.astype(jnp.float32))
+    ref, ref_vjp = jax.vjp(lambda v: pallas_blur_diff(v, k, pad, True), jnp.asarray(x))
+    ref_dx = ref_vjp(jnp.asarray(g))[0]
+    out16, vjp16 = jax.vjp(lambda v: pallas_blur_diff(v, k.astype(jnp.bfloat16), pad, True),
+                           x16)
+    (dx16,) = vjp16(g16)
+    assert out16.dtype == dx16.dtype == jnp.bfloat16
+    tx = to_nchw(x).to(torch.bfloat16).requires_grad_()
+    got = k2.upfirdn_blur(tx, taps.astype(np.float32), pad)
+    (got_dx,) = torch.autograd.grad(got, tx, to_nchw(g).to(torch.bfloat16))
+    assert got.dtype == got_dx.dtype == torch.bfloat16
+    for port, pallas, want in ((got, out16, ref), (got_dx, dx16, ref_dx)):
+        port = to_nhwc(port.float())
+        pallas, want = np.asarray(pallas.astype(jnp.float32)), np.asarray(want)
+        assert rel_l2(port, want) <= rel_l2(pallas, want)
+        assert rel_l2(port, pallas) <= BF16_RTOL
 
 
 @pytest.mark.parametrize("up,down,pad,kernel_2d", [

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from gen_adversarial_tpu_torch.core.convert import from_jax_variables
+from gen_adversarial_tpu_torch.core.precision import BF16_GAP_FACTOR
 
 
 def random_variables(variables, seed: int):
@@ -76,8 +77,11 @@ def keyed_normal_call(key, per_draw):
     `jax.random.split(key, len(per_draw))`, splitting each draw's key into
     (k_noise, k_purify) as MLVGMDefense does. per_draw[d] is the pair
     (input noise, purifier draw) of draw d, either None where that key draws
-    nothing; a key is looked up in a table of these keys by the shape asked
-    for.
+    nothing, the purifier draw a list where the purifier splits k_purify into
+    one key a draw (the NVAE: z_0, then each group); a key is looked up in a
+    table of these keys by the shape asked for. The value comes back in the
+    dtype asked for: a bfloat16 defense gets the draws rounded, as the
+    port's `Draws` rounds them to the tensor they are drawn for.
 
     Returns jax_call(fn): fn() run with jax.random.normal swapped for the
     lookup, restored afterwards. A key that is not in the table gives NaN,
@@ -87,7 +91,14 @@ def keyed_normal_call(key, per_draw):
 
     tables = {}
     for d, kd in enumerate(jax.random.split(key, len(per_draw))):
-        for k, v in zip(jax.random.split(kd), per_draw[d]):
+        k_noise, k_purify = jax.random.split(kd)
+        noise, purify = per_draw[d]
+        entries = [(k_noise, noise)]
+        if isinstance(purify, (list, tuple)):
+            entries += list(zip(jax.random.split(k_purify, len(purify)), purify))
+        else:
+            entries.append((k_purify, purify))
+        for k, v in entries:
             if v is None:
                 continue
             keys, vals = tables.setdefault(v.shape, ([], []))
@@ -112,6 +123,45 @@ def keyed_normal_call(key, per_draw):
             jax.random.normal = real_normal
 
     return jax_call
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float64: the distance the bfloat16 tests
+    hold their results to, over a whole output rather than its worst
+    element (bfloat16 rounds at other places in the two frameworks)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+
+
+def assert_within_bf16_gap(port16, jax16, jax32, what: str) -> tuple[float, float]:
+    """The port's bfloat16 result against JAX's float32 one, within
+    BF16_GAP_FACTOR x JAX bfloat16's own distance from it; returns (the
+    port's distance, JAX's)."""
+    err, gap = rel_l2(port16, jax32), rel_l2(jax16, jax32)
+    print(f"{what}: JAX bfloat16 vs float32 {gap:.3e}; port bfloat16 vs JAX float32 "
+          f"{err:.3e} (vs JAX bfloat16 {rel_l2(port16, jax16):.3e})")
+    assert 0 < gap < 0.5, (what, gap)
+    assert err <= BF16_GAP_FACTOR * gap, (what, err, gap)
+    return err, gap
+
+
+def bf16_logits(pair, x):
+    """(port bfloat16, JAX bfloat16, JAX float32) logits of a defense pair
+    builder: pair(bf16) -> (jax_net(defense, x), the JAX defense, jax_call,
+    port_net(x)), both defenses cast by their package's defense_astype when
+    bf16 is true; the JAX side jitted with the defense as an argument."""
+    import jax.numpy as jnp
+
+    want = {}
+    for bf16 in (False, True):
+        jnet, jdef, jax_call, tnet = pair(bf16)
+        want[bf16] = np.asarray(jax_call(lambda: jax.jit(jnet)(jdef, jnp.asarray(x))))
+    with torch.no_grad():
+        got = tnet(torch.tensor(x))
+    assert got.dtype == torch.float32 and want[True].dtype == np.float32
+    return got.numpy(), want[True], want[False]
 
 
 @pytest.fixture(scope="module")
