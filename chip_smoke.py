@@ -19,7 +19,8 @@ gives it and drives the path, float32, random weights from a seed:
   K2 at the 512-px generator's shapes.
 
 Each path is then rehearsed small on the GPU and on the CPU with the same
-weights and draws. Phase `grad` takes input gradients the way the attacks
+weights and draws (the GPU defense a deep copy of the CPU one; for ids also
+with the NVAE's normalizing-flow cells). Phase `grad` takes input gradients the way the attacks
 will (torch.func.vjp, then vmap over the one-hot class cotangents) through
 the three small defenses on the GPU and the CPU, and one input gradient of
 the full ids flagship, timed, with its peak memory. Then the attacks
@@ -31,13 +32,16 @@ few steps on the full ids flagship (EoT-32), through K1; `attack_remat`
 runs APGD-CE on the full gender defense and one input gradient of the full
 cars defense, both with remat, through K2. Then bfloat16
 (core/precision.defense_astype): `kernels_bf16` checks the kernels'
-bfloat16 builds against their bfloat16 plain versions at the flagship's and
-the gender path's shapes; `bf16` runs the three full-width forwards in
+bfloat16 builds against their bfloat16 plain versions
+at the flagship's, the gender path's and the cars path's shapes (K2
+bit-identical, K1 within one bfloat16 ulp) and at ragged ones, and times
+them; `bf16` runs the three full-width forwards in
 bfloat16 after a float32 call on the same weights, with the host's cost of
 a launch and, from one torch.profiler trace in each dtype, the device's
-busy share and the kernels' device time; `bf16_parity` holds the
-three small defenses and the small ids class gradients in bfloat16 on the
-GPU against the CPU's float32, within twice the CPU's own bfloat16 distance;
+busy share and the kernels' device time; `bf16_parity` holds cast
+copies of the three small defenses and the small ids class gradients in
+bfloat16 on the GPU against the CPU's float32, within twice the CPU's own
+bfloat16 distance;
 `attack_bf16` runs APGD-CE on the bfloat16 flagship and, with remat, on the
 bfloat16 gender defense. Every phase prints one JSON line with its elapsed
 seconds;
@@ -51,6 +55,7 @@ JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import faulthandler
 import json
 import math
@@ -287,19 +292,20 @@ def main() -> int:
     flag = run_phase("flagship", flagship_phase)
     torch.cuda.empty_cache()  # the flagship's weights went with its phase
 
-    def small_ids(n_classes=10):
-        """A small ids defense on the CPU and the same weights on the GPU,
-        with EoT-4 draws and images from a numpy seed."""
+    def small_ids(n_classes=10, num_nf_cells=None):
+        """A small ids defense on the CPU and a deep copy of it on the GPU,
+        with EoT-4 draws and images from a numpy seed; `num_nf_cells` 1 puts
+        a normalizing-flow block after each latent's mix."""
         import numpy as np
         cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2,
                          num_groups_per_scale=2, is_adaptive=False,
-                         num_cells_per_group=1, num_latent_per_group=4, num_mixtures=3)
+                         num_cells_per_group=1, num_latent_per_group=4, num_mixtures=3,
+                         num_nf_cells=num_nf_cells)
         plan = (16, "M", 32, "M")
         eot, b = 4, 2
         kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=plan, n_classes=n_classes)
         cpu = flagship(device="cpu", **kw)
-        gpu = flagship(device=dev, **kw)
-        gpu.load_state_dict(cpu.state_dict())
+        gpu = copy.deepcopy(cpu).to(dev)
         rng = np.random.RandomState(4)
         x = torch.tensor(rng.rand(b, 32, 32, 3).astype(np.float32))
         shapes = [(eot * b, 32, 32, 3)] + eps_shapes(cfg, eot * b)
@@ -308,19 +314,24 @@ def main() -> int:
 
     def parity_phase():
         # a small defense on the GPU (kernel path) against the same weights
-        # and draws on the CPU (plain path)
-        cpu, gpu, x, draws, eot, segments = small_ids()
-        before = k1.launches
-        with torch.no_grad():
-            want = eot_wrap(cpu, eot)(x, draws)
-            got = eot_wrap(gpu, eot)(x.to(dev), draws).cpu()
-        if k1.launches - before != segments:
-            raise RuntimeError("the GPU defense did not go through K1")
-        err = (got - want).abs().max().item()
-        tol = PARITY_RTOL * max(1.0, want.abs().max().item())
-        if not math.isfinite(err) or err > tol:
-            raise RuntimeError(f"GPU defense disagrees with the CPU one: {err} > {tol}")
-        return {"eot_steps": eot, "batch": x.shape[0], "max_abs_err": err, "tol": tol}
+        # and draws on the CPU (plain path), without and with the NVAE's
+        # normalizing-flow cells
+        out = {}
+        for name, nf in (("ids", None), ("ids_flow_cells", 1)):
+            cpu, gpu, x, draws, eot, segments = small_ids(num_nf_cells=nf)
+            before = k1.launches
+            with torch.no_grad():
+                want = eot_wrap(cpu, eot)(x, draws)
+                got = eot_wrap(gpu, eot)(x.to(dev), draws).cpu()
+            if k1.launches - before != segments:
+                raise RuntimeError(f"the GPU {name} defense did not go through K1")
+            err = (got - want).abs().max().item()
+            tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+            if not math.isfinite(err) or err > tol:
+                raise RuntimeError(f"GPU {name} defense disagrees with the CPU one: {err} > {tol}")
+            out[name] = {"num_nf_cells": nf, "flow_blocks": len(gpu.purifier.nf_cells),
+                         "eot_steps": eot, "batch": x.shape[0], "max_abs_err": err, "tol": tol}
+        return out
 
     run_phase("parity", parity_phase)
     torch.cuda.empty_cache()
@@ -448,7 +459,7 @@ def main() -> int:
 
     def small_gender():
         """A small gender defense (32-px generator, full-width encoder, one
-        ResNet block per stage) on the CPU and the same weights on the GPU,
+        ResNet block per stage) on the CPU and a deep copy of it on the GPU,
         with EoT-4 draws and 64-px images from a numpy seed."""
         import numpy as np
         size, eot, b, image, n_codes = 32, 4, 2, 64, 8
@@ -456,8 +467,7 @@ def main() -> int:
         # refuses torch.utils.checkpoint
         kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1), remat=False)
         cpu = gender_defense(device="cpu", **kw)
-        gpu = gender_defense(device=dev, **kw)
-        gpu.load_state_dict(cpu.state_dict())
+        gpu = copy.deepcopy(cpu).to(dev)
         rng = np.random.RandomState(4)
         x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
         draws = [torch.tensor(rng.standard_normal(s).astype(np.float32))
@@ -544,15 +554,14 @@ def main() -> int:
     def small_cars(eps, b, eot):
         """A small cars defense (32-px generator, full-width encoder, which
         always sees the 192 x 256 crop, one ResNeXt block per stage) on the
-        CPU and the same weights on the GPU, with EoT draws and 128-px images
+        CPU and a deep copy of it on the GPU, with EoT draws and 128-px images
         from a numpy seed."""
         import numpy as np
         size, n_codes, image = 32, 8, cars.IMAGE_SIZE
         kw = dict(initial_noise_eps=eps, seed=3, output_size=size,
                   classifier_layers=(1, 1, 1, 1), remat=False)  # as small_gender's
         cpu = cars.cars_defense(device="cpu", **kw)
-        gpu = cars.cars_defense(device=dev, **kw)
-        gpu.load_state_dict(cpu.state_dict())
+        gpu = copy.deepcopy(cpu).to(dev)
         rng = np.random.RandomState(4)
         x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
         shapes = ([(eot * b, image, image, 3)] if eps > 0 else []) + [(n_codes, eot * b, 512)]
@@ -927,24 +936,27 @@ def main() -> int:
                                f"elements: max abs err {err}, {ulps} ulps")
         return err, ulps, tol * scale
 
-    def kernels_bf16_phase():
-        k1_rows = []
+    def k1_bf16_rows():
+        """K1's bfloat16 build at the flagship's shapes, with the float32
+        taps and affines the decoder cells hand it (bfloat16 weights widened
+        once: ResidualCellDecoder.segment_args), against its plain version;
+        also timed with the bfloat16 weights themselves, which the wrapper
+        widens at every launch."""
+        rows = []
         for (c, h), per_decode in shape_counts.items():
             x = torch.randn(n, c, h, h, device=dev, generator=gen).to(bf16).contiguous(
                 memory_format=torch.channels_last)
-            wk = (torch.randn(5, 5, c, device=dev, generator=gen) * 0.2).to(bf16)
-            aff = [(torch.randn(c, device=dev, generator=gen) * 0.5 + 1).to(bf16)
-                   for _ in range(4)]
+            wk16 = (torch.randn(5, 5, c, device=dev, generator=gen) * 0.2).to(bf16)
+            aff16 = [(torch.randn(c, device=dev, generator=gen) * 0.5 + 1).to(bf16)
+                     for _ in range(4)]
+            wk, aff = wk16.float(), [a.float() for a in aff16]
             y = k1.depthwise_silu_segment(x, wk, *aff)
             torch.cuda.synchronize()
             err, ulps, tol = check_bf16(f"K1 at C={c} H={h}", y,
                                         k1.depthwise_silu_segment_plain(x, wk, *aff), K1_TOL)
-            w = k1.taps_oihw(wk).contiguous()
+            w = k1.taps_oihw(wk16).contiguous()
             ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk, *aff))
-            # the same launches with the taps and affines already float32:
-            # without the wrapper's five casts of the bfloat16 weights
-            wk32, aff32 = wk.float(), [a.float() for a in aff]
-            ms_f32_weights = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk32, *aff32))
+            ms_bf16_weights = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk16, *aff16))
             plain_ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment_plain(x, wk, *aff),
                                BF16_SLOW_REPS)
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w, padding=2, groups=c),
@@ -954,23 +966,35 @@ def main() -> int:
             bytes_moved = 2 * elements * 2 + (25 + 4) * c * 4
             byte_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
             op_ms = 1e3 * elements * K1_FLOP_PER_ELEMENT / F32_FLOP_PER_S
-            k1_rows.append({"C": c, "H": h, "N": n, "per_decode": per_decode,
-                            "max_abs_err": err, "max_ulps": ulps, "tol": tol,
-                            "kernel_ms": ms, "kernel_ms_float32_weights": ms_f32_weights,
-                            "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bound_ms": max(byte_ms, op_ms),
-                            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                            "roofline_share": max(byte_ms, op_ms) / ms})
+            rows.append({"C": c, "H": h, "N": n, "per_decode": per_decode,
+                         "max_abs_err": err, "max_ulps": ulps, "tol": tol,
+                         "kernel_ms": ms, "kernel_ms_bf16_weights": ms_bf16_weights,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": max(byte_ms, op_ms),
+                         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                         "roofline_share": max(byte_ms, op_ms) / ms})
             del x, y
+        return rows
+
+    def k2_bf16_rows(sites, n_images):
+        """K2's bfloat16 build at each (C, H_in) of `sites` on a batch of
+        n_images: bit-identical to its plain version (both sum in float32 in
+        the same order and round once), timed with the plain version and
+        the library call at BF16_SLOW_REPS launches."""
         kf = torch.tensor(taps[::-1], device=dev)
-        k2_rows = []
-        for c, h in k2_sites:
-            x = torch.randn(n_gender, c, h, h, device=dev, generator=gen).to(bf16).contiguous(
+        rows = []
+        for c, h in sites:
+            x = torch.randn(n_images, c, h, h, device=dev, generator=gen).to(bf16).contiguous(
                 memory_format=torch.channels_last)
             y = k2.upfirdn_blur(x, taps, BLUR_PAD)
             torch.cuda.synchronize()
-            err, ulps, tol = check_bf16(f"K2 at C={c} H={h}", y,
-                                        k2.blur_plain(x, taps, BLUR_PAD), K2_TOL)
+            plain = k2.blur_plain(x, taps, BLUR_PAD)
+            mismatched = (y != plain).sum().item()
+            err = (y.float() - plain.float()).abs().max().item()
+            del plain
+            if mismatched:
+                raise RuntimeError(f"K2 (bfloat16) at C={c} H={h} is not bit-identical to its "
+                                   f"plain version at {mismatched} elements (max abs err {err})")
             w2d = torch.outer(kf, kf).to(bf16).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
             plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), BF16_SLOW_REPS)
@@ -978,18 +1002,66 @@ def main() -> int:
                                  BF16_SLOW_REPS)
             byte_ms = 1e3 * (x.numel() + y.numel()) * 2 / HBM_BYTES_PER_S
             op_ms = 1e3 * y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S
-            k2_rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_gender,
-                            "per_decode": 1, "max_abs_err": err, "max_ulps": ulps, "tol": tol,
-                            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bound_ms": max(byte_ms, op_ms),
-                            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                            "roofline_share": max(byte_ms, op_ms) / ms})
+            rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_images,
+                         "per_decode": 1, "max_abs_err": err, "mismatched": mismatched,
+                         "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": max(byte_ms, op_ms),
+                         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                         "roofline_share": max(byte_ms, op_ms) / ms})
             del x, y
             torch.cuda.empty_cache()
+        return rows
+
+    def ragged_bf16():
+        """The bfloat16 builds off the main paths' shapes: K2 at widths that
+        are not multiples of 8 (its masked scalar path) or of 32, pads (2, 2)
+        and negative pads, 3 taps and 8-px maps, bit-identical; K1 at widths
+        that are multiples of 8 but not of 32 and partial tiles, within one
+        ulp; each also under torch.func.vmap, whose rule folds the vmapped
+        dim into N (one launch)."""
+        asym, three = (0.1, 0.2, 0.3, 0.4), (1 / 7, 2 / 7, 4 / 7)
+        cases = []
+        for shape, kt, pad in [((2, 3, 9, 9), asym, (1, 1)), ((1, 13, 20, 37), asym, (2, 2)),
+                               ((2, 45, 33, 31), three, (1, 1)), ((2, 40, 8, 8), asym, (2, 2)),
+                               ((1, 72, 31, 70), asym, (-1, 2)), ((3, 24, 17, 17), three, (0, -1))]:
+            x = torch.randn(*shape, device=dev, generator=gen).to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            if not torch.equal(k2.upfirdn_blur(x, kt, pad), k2.blur_plain(x, kt, pad)):
+                raise RuntimeError(f"K2 (bfloat16) at {shape}, pad {pad}: not bit-identical")
+            cases.append({"kernel": "K2", "shape": list(shape), "taps": len(kt), "pad": list(pad)})
+        for shape in [(1, 40, 13, 5), (3, 48, 17, 33), (2, 72, 8, 8), (1, 200, 37, 21)]:
+            c = shape[1]
+            x = torch.randn(*shape, device=dev, generator=gen).to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            wk = torch.randn(5, 5, c, device=dev, generator=gen) * 0.2
+            aff = [torch.randn(c, device=dev, generator=gen) * 0.5 + 1 for _ in range(4)]
+            check_bf16(f"K1 at {shape}", k1.depthwise_silu_segment(x, wk, *aff),
+                       k1.depthwise_silu_segment_plain(x, wk, *aff), K1_TOL)
+            cases.append({"kernel": "K1", "shape": list(shape)})
+        xs = torch.randn(3, 2, 40, 17, 17, device=dev, generator=gen).to(bf16)
+        before = k2.launches
+        got = vmap(lambda v: k2.upfirdn_blur(v, asym, (1, 1)))(xs)
+        if k2.launches != before + 1 or not torch.equal(
+                got, torch.stack([k2.blur_plain(v, asym, (1, 1)) for v in xs])):
+            raise RuntimeError("K2 (bfloat16) under vmap: not one launch, or not bit-identical")
+        wk = torch.randn(5, 5, 40, device=dev, generator=gen) * 0.2
+        aff = [torch.randn(40, device=dev, generator=gen) * 0.5 + 1 for _ in range(4)]
+        before = k1.launches
+        got = vmap(lambda v: k1.depthwise_silu_segment(v, wk, *aff))(xs)
+        if k1.launches != before + 1:
+            raise RuntimeError("K1 (bfloat16) under vmap: not one launch")
+        check_bf16("K1 under vmap", got, torch.stack(
+            [k1.depthwise_silu_segment_plain(v, wk, *aff) for v in xs]), K1_TOL)
+        cases.append({"kernel": "K1 and K2 under vmap", "shape": list(xs.shape)})
+        return cases
+
+    def kernels_bf16_phase():
         return {"dtype": "bfloat16", "slow_reps": BF16_SLOW_REPS,
-                "k1": {"kernel": "depthwise_silu_segment", "shapes": k1_rows},
+                "k1": {"kernel": "depthwise_silu_segment", "shapes": k1_bf16_rows()},
                 "k2": {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
-                       "shapes": k2_rows}}
+                       "shapes": k2_bf16_rows(k2_sites, n_gender),
+                       "cars_shapes": k2_bf16_rows(k2_cars_sites, n_cars)},
+                "ragged": ragged_bf16()}
 
     kernels16 = run_phase("kernels_bf16", kernels_bf16_phase)
 
@@ -1104,10 +1176,10 @@ def main() -> int:
         return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
     def bf16_parity_phase():
-        # each small defense in float32 on the CPU, then cast in place:
+        # each small defense in float32 on the CPU, and cast copies of it:
         # bfloat16 on the CPU (the gap bfloat16 itself opens) and on the GPU,
         # which may be at most BF16_GAP_FACTOR x as far from the CPU's float32
-        out = {}
+        out, ids = {}, None
 
         def gate(name, want, cpu16, gpu16, **extra):
             gap, err = rel_l2(cpu16, want), rel_l2(gpu16, want)
@@ -1123,24 +1195,27 @@ def main() -> int:
                 ("gender", small_gender(), lambda: k2.launches_by_dtype[bf16]),
                 ("cars", small_cars(cars.INITIAL_NOISE_EPS, 2, 4),
                  lambda: k2.launches_by_dtype[bf16])):
+            cpu16, gpu16 = defense_astype(copy.deepcopy(cpu)), defense_astype(gpu)
             with torch.no_grad():
                 want = eot_wrap(cpu, eot)(x, draws)
-                cpu16 = eot_wrap(defense_astype(cpu), eot)(x, draws)
+                got_cpu16 = eot_wrap(cpu16, eot)(x, draws)
                 before = launched()
-                gpu16 = eot_wrap(defense_astype(gpu), eot)(x.to(dev), draws).cpu()
+                got_gpu16 = eot_wrap(gpu16, eot)(x.to(dev), draws).cpu()
             if launched() == before:
                 raise RuntimeError(f"the small {name} defense in bfloat16 launched no kernel")
-            gate(name, want, cpu16, gpu16, eot_steps=eot, batch=x.shape[0],
+            gate(name, want, got_cpu16, got_gpu16, eot_steps=eot, batch=x.shape[0],
                  launches=launched() - before)
+            if name == "ids":
+                ids = (cpu, cpu16, gpu16, x, draws, eot)
         # the small ids defense's class gradients (torch.func.vjp, vmap over
         # the one-hot cotangents), the same way
-        cpu, gpu, x, draws, eot, _ = small_ids()
+        cpu, cpu16, gpu16, x, draws, eot = ids
         want = class_grads(eot_wrap(cpu, eot), x, draws)
-        cpu16 = class_grads(eot_wrap(defense_astype(cpu), eot), x, draws)
-        gpu16 = class_grads(eot_wrap(defense_astype(gpu), eot), x.to(dev), draws).cpu()
-        if gpu16.dtype != torch.float32:
-            raise RuntimeError(f"bfloat16 class gradients came back as {gpu16.dtype}")
-        gate("ids_class_grads", want, cpu16, gpu16, classes=want.shape[0])
+        got_cpu16 = class_grads(eot_wrap(cpu16, eot), x, draws)
+        got_gpu16 = class_grads(eot_wrap(gpu16, eot), x.to(dev), draws).cpu()
+        if got_gpu16.dtype != torch.float32:
+            raise RuntimeError(f"bfloat16 class gradients came back as {got_gpu16.dtype}")
+        gate("ids_class_grads", want, got_cpu16, got_gpu16, classes=want.shape[0])
         return out
 
     run_phase("bf16_parity", bf16_parity_phase)
@@ -1203,6 +1278,7 @@ def main() -> int:
         ms = weighted("kernel_ms")
         out = {"launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
                "ms": ms, "plain_ms": weighted("plain_ms"), "bound_ms": weighted("bound_ms"),
+               "roofline_share": weighted("bound_ms") / ms,
                "bound_by": "bytes" if all(r.get("bound_by", "bytes") == "bytes" for r in rows)
                else "operations",
                "library_ms": weighted("library_ms"), "per": per,
@@ -1211,6 +1287,10 @@ def main() -> int:
             out["copy_ms"] = weighted("copy_ms")
         if "max_ulps" in rows[0]:
             out["max_ulps"] = max(r["max_ulps"] for r in rows)
+        if "kernel_ms_bf16_weights" in rows[0]:
+            out["ms_bf16_weights"] = weighted("kernel_ms_bf16_weights")
+        if "mismatched" in rows[0]:
+            out["mismatched"] = sum(r["mismatched"] for r in rows)
         return out
 
     def entry(name, dtype, source, replaces, library, **numbers):
@@ -1231,7 +1311,8 @@ def main() -> int:
     k2_16_gender = path_numbers(kernels16["k2"]["shapes"], run16["gender"]["k2_launches"],
                                 per_decode("gender", n_gender), "gender",
                                 mean_call_s(run16["gender"]))
-    k2_16_cars = run16["cars"]["k2_launches"]
+    k2_16_cars = path_numbers(kernels16["k2"]["cars_shapes"], run16["cars"]["k2_launches"],
+                              per_decode("cars", n_cars), "cars", mean_call_s(run16["cars"]))
 
     def device_ms(path, busy, kernel_kind):
         """The kernel's device ms in one traced call of phase bf16 (one
@@ -1263,22 +1344,28 @@ def main() -> int:
               attack_launches={
                   "gender_apgd_ce": attack_rm["gender_apgd_ce"]["k2_launches"],
                   "cars_input_grad": attack_rm["cars_input_grad"]["k2_launches"]}),
-        # the bfloat16 builds: launches in phase bf16 (the three forwards)
-        # and attack_bf16; times at the flagship's and gender's shapes
+        # the bfloat16 builds: launches in phase bf16
+        # (the three forwards) and attack_bf16; times at the flagship's,
+        # gender's and cars' shapes; K1's `ms` with the float32 weights the
+        # decoder cells hand it, `ms_bf16_weights` with the wrapper's casts
         entry("depthwise_silu_segment", "bfloat16", k1.SOURCE,
               "gen_adversarial_tpu/ops/pallas_depthwise.py:87",
               "torch.nn.functional.conv2d(groups=C) in bfloat16, the depthwise only",
               **k1_16, device_ms=device_ms("flagship", "busy_bf16", "k1_depthwise_segment"),
               attack_launches={
                   "flagship_apgd_ce": attack16["flagship_apgd_ce"]["k1_launches"]}),
-        # the top-level numbers are the gender path's; `launches` covers the
-        # gender and cars forwards
+        # the top-level numbers are the gender path's; `launches` and
+        # `max_abs_err` cover both paths, and `cars` holds the cars path's
         entry("upfirdn_blur", "bfloat16", k2.SOURCE,
               "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
               "torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C) in bfloat16",
-              **{**k2_16_gender, "launches": k2_16_gender["launches"] + k2_16_cars},
-              launches_by_path={"gender": k2_16_gender["launches"], "cars": k2_16_cars},
+              **{**k2_16_gender, "launches": k2_16_gender["launches"] + k2_16_cars["launches"],
+                 "max_abs_err": max(k2_16_gender["max_abs_err"], k2_16_cars["max_abs_err"])},
+              launches_by_path={"gender": k2_16_gender["launches"],
+                                "cars": k2_16_cars["launches"]},
               device_ms=device_ms("gender", "busy_bf16", "k2_upfirdn_blur"),
+              device_ms_cars=device_ms("cars", "busy_bf16", "k2_upfirdn_blur"),
+              cars=k2_16_cars,
               attack_launches={"gender_apgd_ce": attack16["gender_apgd_ce"]["k2_launches"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

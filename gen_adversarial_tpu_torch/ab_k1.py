@@ -1,6 +1,6 @@
 """A/B of versions of the decoder segment kernel (K1) on one CUDA card.
 
-    python3 -m gen_adversarial_tpu_torch.ab_k1 NAME=SOURCE ...
+    python3 -m gen_adversarial_tpu_torch.ab_k1 [--dtype bfloat16] NAME=SOURCE ...
 
 Each variant is a CUDA source with K1's C interface: `csrc/depthwise_segment.cu`,
 an earlier commit's version of it from `git show`, or an edited copy of it
@@ -8,7 +8,8 @@ an earlier commit's version of it from `git show`, or an edited copy of it
 flags (one nvcc each, all at once) into `_build/ab/`. Every variant is first
 held against the plain version (`ops/depthwise.depthwise_silu_segment_plain`)
 at the flagship's decoder shapes at N = 4 and at ragged shapes, with
-chip_smoke.py's tolerance; then each shape of a flagship decode (N = 128) is
+chip_smoke.py's tolerance (in bfloat16: within one bfloat16 spacing or that
+absolute tolerance); then each shape of a flagship decode (N = 128) is
 timed with CUDA events, the variants in turns (A B .. B A, twice), and the
 best of the four is kept (`ms`: launches from Python, as a caller makes
 them); beside it `graph_ms`, the same launches replayed from a CUDA graph
@@ -17,6 +18,8 @@ launch, and `wrapper_host_us`, the same through the public
 `ops/depthwise.depthwise_silu_segment` (the package's own build). Per-decode
 sums of `ms` and `graph_ms` close it. Prints the card's name and power limit
 first, then one JSON line a variant (its build), one a shape and the summary.
+`--dtype` is x's and y's (float32 by default); the taps and affines are
+float32 in both, as the decoder cells hand them to the kernel.
 """
 
 from __future__ import annotations
@@ -35,13 +38,14 @@ from gen_adversarial_tpu_torch.core import cuda_build
 from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE
 from gen_adversarial_tpu_torch.ops import depthwise as k1
 
-RAGGED = [(1, 40, 13, 5), (3, 40, 13, 29), (5, 44, 17, 33), (1, 96, 64, 64)]
+RAGGED = [(1, 40, 13, 5), (3, 40, 13, 29), (5, 48, 17, 33), (1, 96, 64, 64)]
 N = 128  # the folded EoT-32 x batch 4
 TOL = 1e-5  # x max(1, max |plain|): chip_smoke.py's K1_TOL
 REPS = 20
 
 
-def build(variants: dict[str, Path]):
+def build(variants: dict[str, Path], declare=k1.declare):
+    """Each variant built by nvcc (all at once), loaded and `declare`d."""
     out_dir = cuda_build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build.find_nvcc()
@@ -57,7 +61,7 @@ def build(variants: dict[str, Path]):
             raise RuntimeError(f"nvcc failed on variant {name}:\n{out}{err}")
         print(json.dumps({"variant": name, "source": str(variants[name]),
                           **cuda_build.ptxas_summary(out + err)}), flush=True)
-        libs[name] = k1.declare(ctypes.CDLL(str(so)))
+        libs[name] = declare(ctypes.CDLL(str(so)))
     return libs
 
 
@@ -105,7 +109,20 @@ def host_us(fn, reps=REPS) -> float:
     return elapsed / reps * 1e6
 
 
+def agrees(got, want, dtype) -> tuple[bool, float]:
+    """(within chip_smoke.py's tolerance, max abs err)."""
+    d = (got.float() - want.float()).abs()
+    tol = TOL * max(1.0, want.abs().max().item())
+    if dtype == torch.float32:
+        return d.max().item() <= tol, d.max().item()  # NaN fails too
+    spacing = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
+    return not ((d > spacing) & (d > tol)).any().item(), d.max().item()
+
+
 def main(argv) -> int:
+    dtype = torch.float32
+    if argv[:1] == ["--dtype"]:
+        dtype, argv = getattr(torch, argv[1]), argv[2:]
     variants = {name: Path(src) for name, _, src in (a.partition("=") for a in argv)}
     if not variants:
         print(__doc__)
@@ -122,7 +139,7 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(n, c, h, w):
-        x = torch.randn(n, c, h, w, device="cuda", generator=gen).contiguous(
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(dtype).contiguous(
             memory_format=torch.channels_last)
         taps = torch.randn(5, 5, c, device="cuda", generator=gen) * 0.2
         aff = [torch.randn(c, device="cuda", generator=gen) * 0.5 + 1 for _ in range(4)]
@@ -131,12 +148,11 @@ def main(argv) -> int:
     for shape in [(4, c, h, h) for c, h in shapes] + RAGGED:
         x, taps, aff = inputs(*shape)
         plain = k1.depthwise_silu_segment_plain(x, taps, *aff)
-        tol = TOL * max(1.0, plain.abs().max().item())
         for name, lib in libs.items():
-            err = (k1._launch(x, taps, *aff, lib=lib) - plain).abs().max().item()
-            if not err <= tol:  # NaN fails too
-                raise RuntimeError(f"{name} disagrees with the plain version at {shape}: "
-                                   f"max abs err {err} > {tol}")
+            ok, err = agrees(k1._launch(x, taps, *aff, lib=lib), plain, dtype)
+            if not ok:
+                raise RuntimeError(f"{name} disagrees with the plain version at {shape} in "
+                                   f"{dtype}: max abs err {err}")
 
     rows = []
     for (c, h), per_decode in shapes.items():
@@ -146,7 +162,7 @@ def main(argv) -> int:
         times = {name: [] for name in libs}
         for name in (list(libs) + list(libs)[::-1]) * 2:  # A B .. B A, twice
             times[name].append(cuda_ms(launch[name]))
-        row = {"C": c, "H": h, "N": N, "per_decode": per_decode,
+        row = {"C": c, "H": h, "N": N, "dtype": str(dtype), "per_decode": per_decode,
                "ms": {name: min(t) for name, t in times.items()},
                "graph_ms": {name: graph_ms(fn) for name, fn in launch.items()},
                "host_us": {name: host_us(fn) for name, fn in launch.items()},
@@ -154,7 +170,7 @@ def main(argv) -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
         del x, launch
-    print(json.dumps({"card": smi, **{key: {
+    print(json.dumps({"card": smi, "dtype": str(dtype), **{key: {
         name: sum(r[key][name] * r["per_decode"] for r in rows) for name in libs}
         for key in ("ms", "graph_ms")}}), flush=True)
     return 0

@@ -10,7 +10,9 @@ ModuleList attribute `convs`. Layouts change as flax -> torch needs:
 
 - convolution kernels HWIO -> OIHW (a depthwise (5,5,1,C) becomes (C,1,5,5),
   a grouped (3,3,width/groups,width) becomes (width,width/groups,3,3), the
-  layout of nn.Conv2d(groups=groups));
+  layout of nn.Conv2d(groups=groups)); the NVAE flow cells' `MaskedConv2d`
+  is an nn.Conv2d and maps the same way (its depthwise `conv1` (5,5,1,hidden)
+  -> (hidden,1,5,5)), its mask applied at each call and not stored;
 - Dense kernels (in, out) -> Linear weights (out, in);
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
 - LayerNorm scale/bias -> weight/bias (same layout); the Style-Transformer's

@@ -13,8 +13,8 @@ again on each attack step. A bfloat16 defense's robust accuracy has to be
 validated against float32 on each checkpoint before it is reported.
 
 The casts are in place, as `nn.Module.to` is: a caller that still needs the
-float32 defense builds a second one (not `copy.deepcopy`: a defense's purify
-halves are closures over its modules, which a copy would share). The builders
+float32 defense casts a `copy.deepcopy` of it (a copy's purify halves and
+classifier call reach the copy's own modules: defenses/purify.py). The builders
 (`flagship.py`, `gender.py`, `cars.py`) take no dtype; the caller applies
 `defense_astype` after the build.
 """

@@ -61,15 +61,22 @@
 // thread issues the row stores, waits until they have read the stage and
 // refills it with the image `kStages` ahead.
 //
-// bfloat16 (the `Elem` template parameter): the stages hold the bfloat16
-// input as the TMA brings it, and the activation pass converts it into a
-// float32 tile of its own, so silu(x*s0+b0) enters the 25-tap sum unrounded,
-// as in the Pallas kernel. In float32 that tile is the stage itself
-// (activated in place). A bfloat16 stage is half the bytes, so the two
-// stages and the float32 tile take the shared memory the two float32 stages
-// take: the same blocks an SM. The outputs are rounded to bfloat16 into the
-// stage's interior and leave by the same TMA row stores. It issues what the
-// float32 build issues for half the bytes, and takes about as long (PERF.md).
+// bfloat16 (`segment_bf16_kernel`). The float32 layout is bound by what it
+// issues, and one channel a lane issues the float32 build's instructions for
+// half the bytes (PERF.md). So the bfloat16 build moves two channels
+// a lane: a half-warp holds one pixel's 32 channels, a warp two pixels.
+// The stages hold the bfloat16 input as the TMA brings it (64-byte rows);
+// the activation pass reads a channel pair with one 32-bit load and writes
+// its two float32 activations with one 64-bit store into a float32 tile of
+// its own, so silu(x*s0+b0) enters the 25-tap sum unrounded, as in the
+// Pallas kernel; a warp whose two pixels lie outside the image (the
+// padding ring: 36 % of the halo at 16 px) writes their zeros without the
+// SiLUs. In the depthwise, half-warp `h` of warp `w` computes
+// output column 2w + h for its 16 channel pairs: each 64-bit load of the
+// activated tile feeds both channels' taps, the taps and affines are held
+// as pairs. The outputs are rounded to bfloat16 pairs into the stage's
+// interior and leave by the same TMA row stores. The tile, stages, threads
+// and shared memory are the float32 build's: the same blocks an SM.
 //
 // Channel width: a TMA row pitch (C x 4 bytes in float32, C x 2 in bfloat16)
 // must be a multiple of 16, so C must be a multiple of 4 (float32) or 8
@@ -121,21 +128,16 @@ constexpr int kErrEncode = -2;     // the tensor map was refused
 constexpr int kErrWidth = -3;      // C not a multiple of 4, or x or y not 16-byte aligned
 constexpr int kErrWidthBf16 = -4;  // the same in bfloat16, where C must be a multiple of 8
 
-// the element type of x and y: its tensor-map type and its conversions to
-// and from the float32 the kernel computes in (round to nearest even)
+// the element type of x and y: its tensor-map type
 template <typename E>
 struct Elem;
 template <>
 struct Elem<float> {
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  __device__ static __forceinline__ float load(float v) { return v; }
-  __device__ static __forceinline__ float store(float v) { return v; }
 };
 template <>
 struct Elem<__nv_bfloat16> {
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  __device__ static __forceinline__ float load(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __forceinline__ __nv_bfloat16 store(float v) { return __float2bfloat16_rn(v); }
 };
 
 // silu(v) = v / (1 + exp(-v)), as __fdividef(v, 1 + __expf(-v)) computes it
@@ -232,22 +234,68 @@ struct Tile {
   static_assert(kBlocksPerSM >= 1, "the stages do not fit in shared memory");
 };
 
+// shared by both builds: the block's tile coordinates, and one thread's
+// issue of image i of the block into stage i % kStages
 template <int T, typename E>
-__global__ void __launch_bounds__(Tile<T, E>::kThreads, Tile<T, E>::kBlocksPerSM)
-segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
-               const float* __restrict__ taps,
-               const float* __restrict__ s0, const float* __restrict__ b0,
-               const float* __restrict__ s1, const float* __restrict__ b1,
-               int N, int H, int W, int C, int tiles_w) {
+struct Ring {
   using L = Tile<T, E>;
+  E* smem;
+  uint64_t* full;
+  const CUtensorMap* xmap;
+  int c0, h0, w0, n_first;
+
+  __device__ __forceinline__ void issue(int i) const {
+    const int s = i % kStages;
+    mbar_expect_tx(&full[s], L::kStageBytes);
+    tma_load(smem + s * L::kStageElems, xmap, &full[s], c0, w0 - kPad, h0 - kPad, n_first + i);
+  }
+  // mbarriers initialized, then the first kStages images in flight
+  __device__ __forceinline__ void start(int count) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < min(count, kStages); ++i) issue(i);
+    }
+  }
+  // after every thread's writes of the outputs into stage i's interior: one
+  // thread stores them row by row (the TMA drops channels, columns and rows
+  // outside y), then refills the stage with the image kStages ahead
+  __device__ __forceinline__ void finish(int i, int count, int rows, const CUtensorMap* ymap) const {
+    // this thread's accesses of the stage, ordered before the TMA store that
+    // reads it and the TMA load that refills it (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const E* buf = smem + (i % kStages) * L::kStageElems;
+      for (int oh = 0; oh < rows; ++oh)
+        tma_store(ymap, buf + ((oh + kPad) * L::kHalo + kPad) * kTileC, c0, w0, h0 + oh,
+                  n_first + i);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if (i + kStages < count) {
+        // the stores have read the stage before the TMA refills it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        issue(i + kStages);
+      }
+    }
+  }
+};
+
+template <int T>
+__global__ void __launch_bounds__(Tile<T, float>::kThreads, Tile<T, float>::kBlocksPerSM)
+segment_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap ymap, const float* __restrict__ taps,
+                   const float* __restrict__ s0, const float* __restrict__ b0,
+                   const float* __restrict__ s1, const float* __restrict__ b1, int N, int H,
+                   int W, int C, int tiles_w) {
+  using L = Tile<T, float>;
   constexpr int kHalo = L::kHalo;
-  // the stages, then the float32 activated tile (bfloat16 only), then the
-  // stages' mbarriers
+  // the stages, then their mbarriers
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  E* smem = reinterpret_cast<E*>(smem_raw);
-  float* act_tile = reinterpret_cast<float*>(smem_raw + kStages * L::kStageBytes);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem_raw + kStages * L::kStageBytes + L::kActBytes);
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + kStages * L::kStageBytes);
 
   const int lane = threadIdx.x & 31;  // channel within the tile
   const int warp = threadIdx.x >> 5;
@@ -258,21 +306,8 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   const int w0 = (blockIdx.x % tiles_w) * T;
   const int n_first = blockIdx.z * kImages;
   const int count = min(N - n_first, kImages);
-
-  // thread 0 only: image i of this block into stage i % kStages
-  auto issue = [&](int i) {
-    const int s = i % kStages;
-    mbar_expect_tx(&full[s], L::kStageBytes);
-    tma_load(smem + s * L::kStageElems, &xmap, &full[s], c0, w0 - kPad, h0 - kPad, n_first + i);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < min(count, kStages); ++i) issue(i);
-  }
+  const Ring<T, float> ring{smem, full, &xmap, c0, h0, w0, n_first};
+  ring.start(count);
 
   const float a0 = c_ok ? s0[c] : 0.0f, z0 = c_ok ? b0[c] : 0.0f;
   const float a1 = c_ok ? s1[c] : 0.0f, z1 = c_ok ? b1[c] : 0.0f;
@@ -284,9 +319,7 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   const int rows = min(T, H - h0);  // output rows of this tile inside the image
   for (int i = 0; i < count; ++i) {
     const int s = i % kStages;
-    E* buf = smem + s * L::kStageElems;
-    // the activated tile: the stage itself in float32
-    float* act = L::kInPlace ? reinterpret_cast<float*>(buf) : act_tile;
+    float* buf = smem + s * L::kStageElems;  // activated in place
     mbar_wait(&full[s], (i / kStages) & 1);
 
     // the first affine and SiLU at the pixels inside the image; the TMA
@@ -300,9 +333,9 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
         const unsigned h = h0 - kPad + hr, w = w0 - kPad + wc;  // < 0 wraps high
         if (L::kHaloPix % L::kWarps == 0 || q * L::kWarps + warp < L::kHaloPix) {
           const int idx = (q * L::kWarps + warp) * kTileC + lane;
-          const float v = Elem<E>::load(buf[idx]);
+          const float v = buf[idx];
           const float a = silu(fmaf(v, a0, z0));  // computed everywhere: no branch
-          act[idx] = (h < (unsigned)H && w < (unsigned)W) ? a : v;
+          buf[idx] = (h < (unsigned)H && w < (unsigned)W) ? a : v;
         }
         wc += L::kWarps;
         if (wc >= kHalo) {
@@ -325,7 +358,7 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
       float v[kCols + kTaps - 1];
 #pragma unroll
       for (int j = 0; j < kCols + kTaps - 1; ++j)
-        v[j] = act[(r * kHalo + col0 + j) * kTileC + lane];
+        v[j] = buf[(r * kHalo + col0 + j) * kTileC + lane];
 #pragma unroll
       for (int dy = 0; dy < kTaps; ++dy) {
         const int oh = r - dy;
@@ -340,32 +373,152 @@ segment_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
       }
     }
     // every warp is done reading the stage: write the outputs into its
-    // interior (halo row oh + 2, column col + 2), rounded to the model's
-    // dtype, then one thread stores them row by row; the TMA drops channels,
-    // columns and rows outside y
+    // interior (halo row oh + 2, column col + 2), then store them
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
 #pragma unroll
       for (int oh = 0; oh < T; ++oh)
         buf[((oh + kPad) * kHalo + col0 + j + kPad) * kTileC + lane] =
-            Elem<E>::store(silu(fmaf(acc[j][oh], a1, z1)));
+            silu(fmaf(acc[j][oh], a1, z1));
     }
-    // this thread's accesses of the stage, ordered before the TMA store that
-    // reads it and the TMA load that refills it (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int oh = 0; oh < rows; ++oh)
-        tma_store(&ymap, buf + ((oh + kPad) * kHalo + kPad) * kTileC, c0, w0, h0 + oh,
-                  n_first + i);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      if (i + kStages < count) {
-        // the stores have read the stage before the TMA refills it
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        issue(i + kStages);
+    ring.finish(i, count, rows, &ymap);
+  }
+  // the last stores have read shared memory before the block exits
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// a channel pair's float32 values <-> its two bfloat16 (one 32-bit word);
+// widening is exact, narrowing rounds to nearest even
+__device__ __forceinline__ float2 widen2(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ __nv_bfloat162 narrow2(float2 v) {
+  return __floats2bfloat162_rn(v.x, v.y);
+}
+__device__ __forceinline__ float2 pair_or_zero(const float* p, bool ok) {
+  return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.0f, 0.0f);
+}
+
+// at most 4 blocks an SM (128 registers a thread): the 8x8 map's tile
+// would admit 6 by shared memory, and 85 registers do not hold the taps'
+// pairs
+template <int T>
+__global__ void __launch_bounds__(Tile<T, __nv_bfloat16>::kThreads,
+                                  Tile<T, __nv_bfloat16>::kBlocksPerSM < 4
+                                      ? Tile<T, __nv_bfloat16>::kBlocksPerSM
+                                      : 4)
+segment_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap ymap, const float* __restrict__ taps,
+                    const float* __restrict__ s0, const float* __restrict__ b0,
+                    const float* __restrict__ s1, const float* __restrict__ b1, int N, int H,
+                    int W, int C, int tiles_w) {
+  using L = Tile<T, __nv_bfloat16>;
+  constexpr int kHalo = L::kHalo;
+  constexpr int kPairs = kTileC / 2;  // channel pairs of the tile: a half-warp
+  // pixel pairs of the halo a warp activates (each half-warp one pixel)
+  constexpr int kSteps = L::kHaloPix / (2 * L::kWarps);
+  static_assert(L::kHaloPix % (2 * L::kWarps) == 0, "the warps split the halo in pixel pairs");
+  static_assert(2 * L::kWarps < kHalo, "the activation pass steps one halo row at most");
+  static_assert(2 * L::kWarps == T, "one half-warp an output column");
+  // the stages, then the float32 activated tile, then the stages' mbarriers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* act = reinterpret_cast<float*>(smem_raw + kStages * L::kStageBytes);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem_raw + kStages * L::kStageBytes + L::kActBytes);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int half = lane / kPairs;        // which of the warp's two pixels / columns
+  const int pair = lane % kPairs;        // channel pair within the tile
+  const int c0 = blockIdx.y * kTileC;
+  const int c = c0 + 2 * pair;           // its first channel; C % 8 == 0, so c + 1 < C
+  const bool c_ok = c < C;
+  const int h0 = (blockIdx.x / tiles_w) * T;
+  const int w0 = (blockIdx.x % tiles_w) * T;
+  const int n_first = blockIdx.z * kImages;
+  const int count = min(N - n_first, kImages);
+  const Ring<T, __nv_bfloat16> ring{smem, full, &xmap, c0, h0, w0, n_first};
+  ring.start(count);
+
+  const float2 a0 = pair_or_zero(s0 + c, c_ok), z0 = pair_or_zero(b0 + c, c_ok);
+  const float2 a1 = pair_or_zero(s1 + c, c_ok), z1 = pair_or_zero(b1 + c, c_ok);
+  float2 k[kTaps * kTaps];
+#pragma unroll
+  for (int i = 0; i < kTaps * kTaps; ++i) k[i] = pair_or_zero(taps + i * C + c, c_ok);
+
+  const int col = 2 * warp + half;  // this half-warp's output column
+  const int rows = min(T, H - h0);  // output rows of this tile inside the image
+  for (int i = 0; i < count; ++i) {
+    const int s = i % kStages;
+    __nv_bfloat16* buf = smem + s * L::kStageElems;
+    mbar_wait(&full[s], (i / kStages) & 1);
+
+    // the first affine and SiLU, as in the float32 build, a channel pair a
+    // lane: half-warp `half` of warp `warp` takes halo pixels
+    // 2 * (warp + q * kWarps) + half; the test is uniform across it, and a
+    // warp whose two pixels both lie outside the image skips the SiLUs
+    // (4.5 % of the build's time at the flagship's shapes, by ab_k1.py)
+    {
+      const int p0 = 2 * warp + half;
+      int hr = p0 / kHalo, wc = p0 % kHalo;
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q) {
+        const unsigned h = h0 - kPad + hr, w = w0 - kPad + wc;  // < 0 wraps high
+        const int idx = (p0 + 2 * q * L::kWarps) * kTileC + 2 * pair;
+        const float2 v = widen2(*reinterpret_cast<const uint32_t*>(buf + idx));
+        const bool inside = h < (unsigned)H && w < (unsigned)W;
+        float2 a = v;
+        if (__any_sync(0xffffffffu, inside)) {
+          a.x = silu(fmaf(v.x, a0.x, z0.x));
+          a.y = silu(fmaf(v.y, a0.y, z0.y));
+          a = inside ? a : v;
+        }
+        *reinterpret_cast<float2*>(act + idx) = a;
+        wc += 2 * L::kWarps;
+        if (wc >= kHalo) {
+          wc -= kHalo;
+          ++hr;
+        }
       }
     }
+    __syncthreads();
+
+    // halo row r feeds output rows r-4 .. r with tap row r - oh; taps in the
+    // order dy, dx, as the float32 build
+    float2 acc[T];
+#pragma unroll
+    for (int oh = 0; oh < T; ++oh) acc[oh] = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < kHalo; ++r) {
+      float2 v[kTaps];
+#pragma unroll
+      for (int dx = 0; dx < kTaps; ++dx)
+        v[dx] = *reinterpret_cast<const float2*>(act + (r * kHalo + col + dx) * kTileC + 2 * pair);
+#pragma unroll
+      for (int dy = 0; dy < kTaps; ++dy) {
+        const int oh = r - dy;
+        if (oh >= 0 && oh < T) {
+#pragma unroll
+          for (int dx = 0; dx < kTaps; ++dx) {
+            acc[oh].x = fmaf(v[dx].x, k[dy * kTaps + dx].x, acc[oh].x);
+            acc[oh].y = fmaf(v[dx].y, k[dy * kTaps + dx].y, acc[oh].y);
+          }
+        }
+      }
+    }
+    // the outputs, rounded once to bfloat16 pairs, into the stage's interior
+    // (the depthwise read only the activated tile: no barrier before)
+#pragma unroll
+    for (int oh = 0; oh < T; ++oh) {
+      float2 y;
+      y.x = silu(fmaf(acc[oh].x, a1.x, z1.x));
+      y.y = silu(fmaf(acc[oh].y, a1.y, z1.y));
+      *reinterpret_cast<__nv_bfloat162*>(
+          buf + ((oh + kPad) * kHalo + col + kPad) * kTileC + 2 * pair) = narrow2(y);
+    }
+    ring.finish(i, count, rows, &ymap);
   }
   // the last stores have read shared memory before the block exits
   if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -415,13 +568,14 @@ int launch_tiled(const E* x, const float* taps, const float* s0, const float* b0
   };
   CUtensorMap xmap, ymap;  // x: a tile and its halo; y: one output row of a tile
   if (!make(&xmap, x, L::kHalo, L::kHalo) || !make(&ymap, y, T, 1)) return kErrEncode;
+  const auto kernel = sizeof(E) == sizeof(float) ? segment_f32_kernel<T>
+                                                 : segment_bf16_kernel<T>;
   // above 48 KB, dynamic shared memory needs the kernel's consent, once per
   // device (a host call that is not free: not at every launch)
   static bool consented[kMaxDevices] = {};
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!consented[device]) {
-    cudaError_t err = cudaFuncSetAttribute(segment_kernel<T, E>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)L::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     consented[device] = true;
@@ -429,8 +583,8 @@ int launch_tiled(const E* x, const float* taps, const float* s0, const float* b0
   const int tiles_w = (w + T - 1) / T;
   const int tiles_h = (h + T - 1) / T;
   const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, (n + kImages - 1) / kImages);
-  segment_kernel<T, E><<<grid, L::kThreads, L::kSmemBytes, stream>>>(
-      xmap, ymap, taps, s0, b0, s1, b1, n, h, w, c, tiles_w);
+  kernel<<<grid, L::kThreads, L::kSmemBytes, stream>>>(xmap, ymap, taps, s0, b0, s1, b1, n, h,
+                                                       w, c, tiles_w);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@
 // h + pad0 + pad1 - taps + 1 rows, and as many columns by the same rule.
 // Channels-last (NHWC) float32 or bfloat16 tensors (the model's dtype); 3 or
 // 4 taps; any pads (a negative pad crops) and any channel count (the ragged
-// channel tile is masked). The sums are float32 in both: a bfloat16 input is
-// widened as it is staged and the output rounded once, as it is stored.
+// channel tile is masked). The sums are float32 in both dtypes, in the same
+// order: a bfloat16 input is widened as it is read and the output rounded
+// once, as it is stored.
 //
 // Replaces the Pallas TPU kernel gen_adversarial_tpu/ops/pallas_upfirdn.py
 // (`_blur_kernel`, launched by `_pallas_blur_call`). Same math and the same
@@ -19,23 +20,44 @@
 // What bounds it on an H100: memory. Per output element it reads about one
 // input and writes one output (8 bytes in float32, 4 in bfloat16) against 2 * taps
 // multiply-adds, far below the card's float32 balance point. So the design
-// reads x once from device memory and writes y once: a block stages one
-// input tile plus its (taps - 1)-pixel halo in shared memory, and every
-// output is summed from there. Neighbouring blocks re-read the halo, which
-// mostly hits the 50 MB L2.
+// reads x once from device memory and writes y once: a block reads one
+// input tile plus its (taps - 1)-pixel halo, and every output is summed
+// on chip. Neighbouring blocks re-read the halo, which mostly hits the 50 MB
+// L2.
 //
-// Layout of the work: a block owns a 16-row x 8-column output tile and one
-// 32-channel tile of one image. A warp's 32 lanes cover 32 consecutive
-// channels of one pixel, so every load and store is one coalesced 128-byte
-// transaction (at C = 32, the 1024-px generator block, exactly one pixel;
-// 64 bytes in bfloat16, where pairing channels would restore 128) and every
-// shared-memory access is free of bank conflicts. The staged tile is float32
-// in both dtypes. Each thread
-// first issues all its staging loads into registers (so many loads are in
-// flight at once), then writes them to shared memory. After that, warp
-// `col` walks down output column `col`: each staged row feeds the vertical
-// sums of the taps columns the output column needs, kept in registers, and
-// each finished output row is the horizontal sum of those vertical sums.
+// float32 layout (`blur_f32_kernel`): a block owns a 16-row x 8-column
+// output tile and one 32-channel tile of one image. A warp's 32 lanes cover
+// 32 consecutive channels of one pixel, so every load and store is one
+// coalesced 128-byte transaction (at C = 32, the 1024-px generator block,
+// exactly one pixel) and every shared-memory access is free of bank
+// conflicts. Each thread first issues all its staging loads into registers
+// (so many loads are in flight at once), then writes them to shared memory.
+// After that, warp `col` walks down output column `col`: each staged row
+// feeds the vertical sums of the taps columns the output column needs, kept
+// in registers, and each finished output row is the horizontal sum of those
+// vertical sums. It reaches about 58 % of its byte bound (PERF.md).
+//
+// bfloat16 layout (`blur_bf16_kernel`). One channel a lane would move 64
+// bytes a warp instruction, and the float32 layout's time did not fall when
+// its bytes halved: the loads and stores a warp issues, not the bytes,
+// bound it. So a lane moves 16 bytes, eight channels, in every global
+// access: a block owns a 16-row x (33 - taps)-column output tile of 32
+// channels (four 8-channel vectors), 256 threads, in two passes through a
+// float32 shared-memory tile of the vertical sums:
+// 1. Vertical. Thread (vector v, staged column c, row half) loads the
+//    8 + taps - 1 input pixels of its column (16 bytes each, all issued
+//    before the first is used; zeros outside the image, which is the
+//    padding) and writes the vertical sums of its 8 output rows. A warp
+//    reads 8 neighbouring pixels' 32 channels: 512 contiguous bytes at C =
+//    32. The 32 staged columns cover the output columns plus the halo.
+// 2. Horizontal. Thread (vector v, output row, column quarter) slides along
+//    its (up to) 8 output columns, keeping the last taps vertical sums in
+//    registers, and stores each output's 8 channels rounded to bfloat16 as
+//    one 16-byte store.
+// The shared tile's 16-byte units are swizzled by the parity of (row +
+// column), so both passes' 128-bit accesses are free of bank conflicts.
+// Where C is not a multiple of 8 (or x or y not 16-byte aligned) the same
+// kernel moves each vector as 8 masked scalars (`kVec` false).
 //
 // Offsets are 64-bit: at the 1024-px site x holds 64 x 1025 x 1025 x 32 =
 // 2.15e9 elements, more than a 32-bit index can address.
@@ -52,32 +74,21 @@
 
 namespace {
 
-constexpr int kTileC = 32;  // channels per block: one warp's lanes
-constexpr int kWarps = 8;   // output columns per block: one per warp
+constexpr int kTileC = 32;  // channels per block (float32: one warp's lanes)
+constexpr int kWarps = 8;   // float32: output columns per block, one per warp
 constexpr int kTileW = kWarps;
 constexpr int kTileH = 16;  // output rows per block
 constexpr int kMaxTaps = 4;
+constexpr int kMaxDevices = 64;
 
 struct Taps {
   float k[kMaxTaps];  // flipped taps (the correlation taps)
 };
 
-// conversions between the element type and float32 (round to nearest even)
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename E>
-__device__ __forceinline__ E narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <int T, typename E>
+template <int T>
 __global__ void __launch_bounds__(kTileC * kWarps)
-blur_kernel(const E* __restrict__ x, E* __restrict__ y, int H, int W, int C,
-            int pad0, int h_out, int w_out, int tiles_w, Taps taps) {
+blur_f32_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, int C,
+                int pad0, int h_out, int w_out, int tiles_w, Taps taps) {
   constexpr int kRows = kTileH + T - 1;  // staged rows
   constexpr int kCols = kTileW + T - 1;  // staged columns
   constexpr int kPix = kRows * kCols;
@@ -91,7 +102,7 @@ blur_kernel(const E* __restrict__ x, E* __restrict__ y, int H, int W, int C,
   const int i0 = (blockIdx.x / tiles_w) * kTileH;
   const int j0 = (blockIdx.x % tiles_w) * kTileW;
   const int64_t n = blockIdx.z;
-  const E* xn = x + n * H * W * C;
+  const float* xn = x + n * H * W * C;
 
   // stage the tile and its halo; zeros outside the image (the padding)
   float v[kStaged];
@@ -101,7 +112,7 @@ blur_kernel(const E* __restrict__ x, E* __restrict__ y, int H, int W, int C,
     const int h = i0 - pad0 + p / kCols;
     const int w = j0 - pad0 + p % kCols;
     v[s] = (p < kPix && c_ok && h >= 0 && h < H && w >= 0 && w < W)
-               ? widen(__ldg(xn + ((int64_t)h * W + w) * C + c))
+               ? __ldg(xn + ((int64_t)h * W + w) * C + c)
                : 0.0f;
   }
 #pragma unroll
@@ -116,7 +127,7 @@ blur_kernel(const E* __restrict__ x, E* __restrict__ y, int H, int W, int C,
   float k[T];
 #pragma unroll
   for (int t = 0; t < T; ++t) k[t] = taps.k[t];
-  E* yn = y + n * h_out * w_out * C;
+  float* yn = y + n * h_out * w_out * C;
 
   // vert[b][i]: the vertical sum for output row i at staged column col + b;
   // staged row r adds tap r - i to rows r - T + 1 .. r, and completes row
@@ -138,37 +149,226 @@ blur_kernel(const E* __restrict__ x, E* __restrict__ y, int H, int W, int C,
       float out = vert[0][i] * k[0];
 #pragma unroll
       for (int b = 1; b < T; ++b) out = fmaf(vert[b][i], k[b], out);
-      yn[((int64_t)(i0 + i) * w_out + j) * C + c] = narrow<E>(out);
+      yn[((int64_t)(i0 + i) * w_out + j) * C + c] = out;
     }
   }
 }
 
-template <int T, typename E>
-int launch(const E* x, E* y, int n, int h, int w, int c, int pad0, int pad1,
-           const float* taps, cudaStream_t stream) {
-  const int h_out = h + pad0 + pad1 - T + 1;
-  const int w_out = w + pad0 + pad1 - T + 1;
-  Taps kf;
-  for (int t = 0; t < T; ++t) kf.k[t] = taps[T - 1 - t];  // flip once
+// the bfloat16 build: see the header (bfloat16 layout)
+constexpr int kVecC = 8;                  // channels a lane moves: 16 bytes
+constexpr int kVecs = kTileC / kVecC;     // vectors per block
+constexpr int kStagedCols = 32;           // staged columns: output tile + halo
+constexpr int kHalfRows = kTileH / 2;     // output rows of a vertical-pass thread
+constexpr int kQuarterCols = 8;           // output columns of a horizontal-pass thread
+constexpr int kBf16Threads = kVecs * kStagedCols * 2;
+// the vertical sums: kTileH x kStagedCols pixels x kTileC float32 channels
+constexpr int kSumBytes = kTileH * kStagedCols * kTileC * 4;
+static_assert(kBf16Threads == 256, "the vertical pass gives every thread one column and half");
+static_assert(kVecs * kTileH * 4 == kBf16Threads, "the horizontal pass: four column quarters");
+
+// 8 bfloat16 (as 4 words) <-> 8 float32: widening is exact, and the
+// narrowing rounds to nearest even, as __float2bfloat16_rn does
+__device__ __forceinline__ void widen8(const uint4& raw, float f[kVecC]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    f[2 * q] = __uint_as_float(w[q] << 16);
+    f[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint4 narrow8(const float f[kVecC]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+    w[q] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the 16-byte unit of the vertical sums of (output row i, staged column c,
+// vector v, half h of its 8 channels); the swizzle keeps each quarter-warp's
+// 128-bit accesses on 8 different unit slots in both passes
+__device__ __forceinline__ int sum_unit(int i, int c, int v, int h) {
+  return (i * kStagedCols + c) * (2 * kVecs) + ((2 * v + h) ^ ((i + c) & 1));
+}
+
+template <int T, bool kVec>
+__global__ void __launch_bounds__(kBf16Threads)
+blur_bf16_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, int H,
+                 int W, int C, int pad0, int h_out, int w_out, int tiles_w, Taps taps) {
+  constexpr int kTileWOut = kStagedCols - (T - 1);  // output columns a block
+  constexpr int kLoadRows = kHalfRows + T - 1;
+  extern __shared__ __align__(16) float4 sums[];
+
+  const int i0 = (blockIdx.x / tiles_w) * kTileH;
+  const int j0 = (blockIdx.x % tiles_w) * kTileWOut;
+  const int64_t n = blockIdx.z;
+  float k[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) k[t] = taps.k[t];
+
+  // 1. vertical: (vector v, staged column c, row half)
+  {
+    const int v = threadIdx.x % kVecs;
+    const int c = (threadIdx.x / kVecs) % kStagedCols;
+    const int half = threadIdx.x / (kVecs * kStagedCols);
+    const int cb = blockIdx.y * kTileC + v * kVecC;  // first channel of the vector
+    const int w = j0 - pad0 + c;
+    const int h_first = i0 - pad0 + half * kHalfRows;
+    const bool col_ok = w >= 0 && w < W && cb < C;
+    const __nv_bfloat16* xc = x + ((n * H) * W + w) * (int64_t)C + cb;
+    uint4 raw[kLoadRows];
+#pragma unroll
+    for (int r = 0; r < kLoadRows; ++r) {
+      const int h = h_first + r;
+      raw[r] = make_uint4(0, 0, 0, 0);
+      if (col_ok && h >= 0 && h < H) {
+        const __nv_bfloat16* p = xc + (int64_t)h * W * C;
+        if (kVec) {
+          raw[r] = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          uint16_t e[kVecC];
+#pragma unroll
+          for (int q = 0; q < kVecC; ++q)
+            e[q] = cb + q < C ? __ldg(reinterpret_cast<const unsigned short*>(p) + q) : 0;
+          raw[r] = make_uint4(e[0] | (uint32_t)e[1] << 16, e[2] | (uint32_t)e[3] << 16,
+                              e[4] | (uint32_t)e[5] << 16, e[6] | (uint32_t)e[7] << 16);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kHalfRows; ++i) {
+      float s[kVecC], f[kVecC];
+      widen8(raw[i], f);
+#pragma unroll
+      for (int q = 0; q < kVecC; ++q) s[q] = f[q] * k[0];
+#pragma unroll
+      for (int a = 1; a < T; ++a) {
+        widen8(raw[i + a], f);
+#pragma unroll
+        for (int q = 0; q < kVecC; ++q) s[q] = fmaf(f[q], k[a], s[q]);
+      }
+      const int row = half * kHalfRows + i;
+      sums[sum_unit(row, c, v, 0)] = make_float4(s[0], s[1], s[2], s[3]);
+      sums[sum_unit(row, c, v, 1)] = make_float4(s[4], s[5], s[6], s[7]);
+    }
+  }
+  __syncthreads();
+
+  // 2. horizontal: (vector v, output row, column quarter)
+  const int v = threadIdx.x % kVecs;
+  const int row = (threadIdx.x / kVecs) % kTileH;
+  const int quarter = threadIdx.x / (kVecs * kTileH);
+  const int cb = blockIdx.y * kTileC + v * kVecC;
+  const int gi = i0 + row;
+  if (gi >= h_out || cb >= C) return;
+  const int jl0 = quarter * kQuarterCols;
+  __nv_bfloat16* yr = y + ((n * h_out + gi) * w_out) * (int64_t)C + cb;
+  float win[T][kVecC];  // the vertical sums of staged columns jl .. jl + T - 1
+  auto fetch = [&](int slot, int col) {
+    const float4 lo = sums[sum_unit(row, col, v, 0)];
+    const float4 hi = sums[sum_unit(row, col, v, 1)];
+    win[slot][0] = lo.x; win[slot][1] = lo.y; win[slot][2] = lo.z; win[slot][3] = lo.w;
+    win[slot][4] = hi.x; win[slot][5] = hi.y; win[slot][6] = hi.z; win[slot][7] = hi.w;
+  };
+#pragma unroll
+  for (int b = 0; b < T - 1; ++b) fetch(b, jl0 + b);
+#pragma unroll
+  for (int q = 0; q < kQuarterCols; ++q) {
+    const int jl = jl0 + q;
+    const int gj = j0 + jl;
+    if (jl >= kTileWOut || gj >= w_out) break;
+    fetch((q + T - 1) % T, jl + T - 1);
+    float out[kVecC];
+#pragma unroll
+    for (int e = 0; e < kVecC; ++e) out[e] = win[q % T][e] * k[0];
+#pragma unroll
+    for (int b = 1; b < T; ++b) {
+#pragma unroll
+      for (int e = 0; e < kVecC; ++e) out[e] = fmaf(win[(q + b) % T][e], k[b], out[e]);
+    }
+    __nv_bfloat16* p = yr + (int64_t)gj * C;
+    const uint4 packed = narrow8(out);
+    if (kVec) {
+      *reinterpret_cast<uint4*>(p) = packed;
+    } else {
+      const uint32_t w[4] = {packed.x, packed.y, packed.z, packed.w};
+#pragma unroll
+      for (int e = 0; e < kVecC; ++e) {
+        if (cb + e < C)
+          reinterpret_cast<unsigned short*>(p)[e] = (unsigned short)(w[e / 2] >> (16 * (e % 2)));
+      }
+    }
+  }
+}
+
+template <int T>
+int launch_f32(const float* x, float* y, int n, int h, int w, int c, int pad0, int h_out,
+               int w_out, Taps kf, cudaStream_t stream) {
   const int tiles_w = (w_out + kTileW - 1) / kTileW;
   const int tiles_h = (h_out + kTileH - 1) / kTileH;
   const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, n);
-  blur_kernel<T, E><<<grid, dim3(kTileC, kWarps), 0, stream>>>(x, y, h, w, c, pad0, h_out,
+  blur_f32_kernel<T><<<grid, dim3(kTileC, kWarps), 0, stream>>>(x, y, h, w, c, pad0, h_out,
                                                               w_out, tiles_w, kf);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
-int launch_taps(const void* x, void* y, int n, int h, int w, int c, int pad0, int pad1,
-                const float* taps, int ntaps, int device, void* stream) {
+template <int T, bool kVec>
+int launch_bf16_vec(const __nv_bfloat16* x, __nv_bfloat16* y, int n, int h, int w, int c,
+                    int pad0, int h_out, int w_out, Taps kf, int device, cudaStream_t stream) {
+  // above 48 KB, dynamic shared memory needs the kernel's consent, once per
+  // device and instance
+  static bool consented[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!consented[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blur_bf16_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSumBytes);
+    if (err != cudaSuccess) return (int)err;
+    consented[device] = true;
+  }
+  constexpr int kTileWOut = kStagedCols - (T - 1);
+  const int tiles_w = (w_out + kTileWOut - 1) / kTileWOut;
+  const int tiles_h = (h_out + kTileH - 1) / kTileH;
+  const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, n);
+  blur_bf16_kernel<T, kVec><<<grid, kBf16Threads, kSumBytes, stream>>>(
+      x, y, h, w, c, pad0, h_out, w_out, tiles_w, kf);
+  return (int)cudaGetLastError();
+}
+
+template <int T>
+int launch_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int n, int h, int w, int c,
+                int pad0, int h_out, int w_out, Taps kf, int device, cudaStream_t stream) {
+  // 16-byte vectors need every pixel's channels 16-byte aligned
+  const bool vec = c % kVecC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  auto go = vec ? launch_bf16_vec<T, true> : launch_bf16_vec<T, false>;
+  return go(x, y, n, h, w, c, pad0, h_out, w_out, kf, device, stream);
+}
+
+template <int T>
+int launch(bool bf16, const void* x, void* y, int n, int h, int w, int c, int pad0, int pad1,
+           const float* taps, int device, cudaStream_t stream) {
+  const int h_out = h + pad0 + pad1 - T + 1;
+  const int w_out = w + pad0 + pad1 - T + 1;
+  Taps kf;
+  for (int t = 0; t < T; ++t) kf.k[t] = taps[T - 1 - t];  // flip once
+  if (bf16)
+    return launch_bf16<T>((const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, h, w, c, pad0, h_out,
+                          w_out, kf, device, stream);
+  return launch_f32<T>((const float*)x, (float*)y, n, h, w, c, pad0, h_out, w_out, kf, stream);
+}
+
+int launch_taps(bool bf16, const void* x, void* y, int n, int h, int w, int c, int pad0,
+                int pad1, const float* taps, int ntaps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ntaps) {
     case 3:
-      return launch<3, E>((const E*)x, (E*)y, n, h, w, c, pad0, pad1, taps, s);
+      return launch<3>(bf16, x, y, n, h, w, c, pad0, pad1, taps, device, s);
     case 4:
-      return launch<4, E>((const E*)x, (E*)y, n, h, w, c, pad0, pad1, taps, s);
+      return launch<4>(bf16, x, y, n, h, w, c, pad0, pad1, taps, device, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -181,15 +381,14 @@ int launch_taps(const void* x, void* y, int n, int h, int w, int c, int pad0, in
 extern "C" int gat_upfirdn_blur_f32(const void* x, void* y, int n, int h, int w, int c,
                                     int pad0, int pad1, const float* taps, int ntaps,
                                     int device, void* stream) {
-  return launch_taps<float>(x, y, n, h, w, c, pad0, pad1, taps, ntaps, device, stream);
+  return launch_taps(false, x, y, n, h, w, c, pad0, pad1, taps, ntaps, device, stream);
 }
 
 // x and y bfloat16; the taps as for float32
 extern "C" int gat_upfirdn_blur_bf16(const void* x, void* y, int n, int h, int w, int c,
                                      int pad0, int pad1, const float* taps, int ntaps,
                                      int device, void* stream) {
-  return launch_taps<__nv_bfloat16>(x, y, n, h, w, c, pad0, pad1, taps, ntaps, device,
-                                    stream);
+  return launch_taps(true, x, y, n, h, w, c, pad0, pad1, taps, ntaps, device, stream);
 }
 
 extern "C" const char* gat_cuda_error_string(int code) {

@@ -220,13 +220,21 @@ class MLVGMDefense(nn.Module):
         return self.purified(x, draws).float()
 
 
+class ClassifierApply:
+    """Optional (x - mean) / std, then the classifier, on NHWC images. An
+    object holding the model rather than a closure over it, so a deep copy
+    of a defense classifies with its own copy (see defenses/purify.py)."""
+
+    def __init__(self, model: nn.Module, mean: float | None = 0.5, std: float = 0.5):
+        self.model, self.mean, self.std = model, mean, std
+
+    def __call__(self, x) -> torch.Tensor:
+        if self.mean is not None:
+            x = (x - self.mean) / self.std
+        return self.model(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+
+
 def make_classifier_apply(model: nn.Module, mean: float | None = 0.5,
                           std: float = 0.5) -> Callable[[Any], torch.Tensor]:
     """Optional (x - mean) / std, then the classifier. Takes NHWC images."""
-
-    def classifier_apply(x):
-        if mean is not None:
-            x = (x - mean) / std
-        return model(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
-
-    return classifier_apply
+    return ClassifierApply(model, mean, std)

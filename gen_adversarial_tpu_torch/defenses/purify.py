@@ -4,7 +4,14 @@
 gen_adversarial_tpu/defenses/purify.py). Each returns
     encode(x) -> state, decode(alphas, state, draws) -> purified
 on NHWC images, with purify = decode(encode(x)) by construction; the encode
-half draws nothing."""
+half draws nothing.
+
+The halves are bound methods of a small object that holds the model, not
+closures over it: `copy.deepcopy` of a defense that holds them copies that
+object with the defense, and its model is the copy's own purifier (the
+memo of one deepcopy maps the model to one copy), so a copy that is cast
+(`core/precision.defense_astype`) or re-weighted computes from its own
+weights."""
 
 from __future__ import annotations
 
@@ -24,16 +31,24 @@ from gen_adversarial_tpu_torch.ops.image import resize_bilinear
 LETTERBOX = 32
 
 
+class NVAEPurifySplit:
+    """The NVAE's purify halves on [0, 1] NHWC images (the NVAE normalizes
+    internally)."""
+
+    def __init__(self, model: NVAE, temperature: float):
+        self.model, self.temperature = model, temperature
+
+    def encode(self, x):
+        return self.model.purify_encode(x)
+
+    def decode(self, alphas, state, draws):
+        return self.model.purify_decode(state, alphas, draws, self.temperature)
+
+
 def make_nvae_purify_split(model: NVAE, temperature: float = 0.6):
-    """On [0, 1] NHWC images (the NVAE normalizes internally)."""
-
-    def encode(x):
-        return model.purify_encode(x)
-
-    def decode(alphas, state, draws):
-        return model.purify_decode(state, alphas, draws, temperature)
-
-    return encode, decode
+    """(encode, decode) of `NVAEPurifySplit`."""
+    split = NVAEPurifySplit(model, temperature)
+    return split.encode, split.decode
 
 
 def _mix_codes(draws: Draws, style_fn: Callable, codes: torch.Tensor,
@@ -47,40 +62,54 @@ def _mix_codes(draws: Draws, style_fn: Callable, codes: torch.Tensor,
     return ((1 - a) * codes.transpose(0, 1) + a * styles).transpose(0, 1)
 
 
-def make_e4e_purify_split(model: PSP):
+class E4EPurifySplit:
     """E4E purify on NHWC images in the normalized domain [-1, 1]: encode ->
     mix each code with a style of N(0, 1) -> decode (fixed noise buffers),
     pooled to 256 x 256."""
 
-    def encode(x):
-        return model.encode(_nchw(x))
+    def __init__(self, model: PSP):
+        self.model = model
 
-    def decode(alphas, codes, draws):
-        codes = _mix_codes(draws, model.style, codes, alphas, 1.0)
-        return model.decode(codes).permute(0, 2, 3, 1)
+    def encode(self, x):
+        return self.model.encode(_nchw(x))
 
-    return encode, decode
+    def decode(self, alphas, codes, draws):
+        codes = _mix_codes(draws, self.model.style, codes, alphas, 1.0)
+        return self.model.decode(codes).permute(0, 2, 3, 1)
+
+
+def make_e4e_purify_split(model: PSP):
+    """(encode, decode) of `E4EPurifySplit`."""
+    split = E4EPurifySplit(model)
+    return split.encode, split.decode
 
 
 def _nchw(x):
     return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
-def make_trans_purify_split(model: StyleTransformer):
+class TransPurifySplit:
     """Style-Transformer purify on NHWC images in [-1, 1]: resize to 256
     (half-pixel bilinear, no antialias), crop the letterbox rows, encode |
     mix each code with a style of N(0, 0.8^2) -> decode (pooled to 256) ->
     set the letterbox rows to -1 -> resize to 128."""
 
-    def encode(x):
+    def __init__(self, model: StyleTransformer):
+        self.model = model
+
+    def encode(self, x):
         x = resize_bilinear(_nchw(x), 256, 256)
-        return model.encode(x[:, :, LETTERBOX:-LETTERBOX].contiguous(
+        return self.model.encode(x[:, :, LETTERBOX:-LETTERBOX].contiguous(
             memory_format=torch.channels_last))
 
-    def decode(alphas, codes, draws):
-        codes = _mix_codes(draws, model.style, codes, alphas, 0.8)
-        images = model.decode(codes)[:, :, LETTERBOX:-LETTERBOX]
+    def decode(self, alphas, codes, draws):
+        codes = _mix_codes(draws, self.model.style, codes, alphas, 0.8)
+        images = self.model.decode(codes)[:, :, LETTERBOX:-LETTERBOX]
         images = F.pad(images, (0, 0, LETTERBOX, LETTERBOX), value=-1.0)
         return resize_bilinear(images, 128, 128).permute(0, 2, 3, 1)
 
-    return encode, decode
+
+def make_trans_purify_split(model: StyleTransformer):
+    """(encode, decode) of `TransPurifySplit`."""
+    split = TransPurifySplit(model)
+    return split.encode, split.decode

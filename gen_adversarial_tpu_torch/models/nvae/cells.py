@@ -6,12 +6,14 @@ Submodule names follow the JAX package's variable tree (`bn0`, `conv_expand`,
 `conv_depthwise`, `se.linear_1`, `skip.conv`, ...), so `core/convert.py` maps
 weights by name. The decoder cell's BN-SiLU-DW5x5-BN-SiLU segment goes
 through the fused kernel `ops/depthwise.depthwise_silu_segment`.
-`MaskedConv2d`, `NFCell` and `NFBlock` (normalizing-flow cells) are not on
-the purify path of the supported configurations and are not ported yet.
+The normalizing-flow cells (`make_ar_mask`, `MaskedConv2d`, `NFCell`,
+`NFBlock`) are plain PyTorch: the purify path applies them to each latent
+after its mix when the configuration sets `num_nf_cells`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,6 +24,9 @@ from gen_adversarial_tpu_torch.ops.image import upsample_bilinear2x
 
 def _bn(ch: int, device) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.05, device=device)
+
+
+_BN_TENSORS = ("weight", "bias", "running_mean", "running_var")
 
 
 def bn_affine(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,12 +122,38 @@ class ResidualCellDecoder(nn.Module):
         self.bn3 = _bn(out_ch, device)
         self.se = SE(out_ch, device) if use_se else None
         self.skip = SkipUp(in_ch, out_ch, device) if upsampling else None
+        self._segment_cache = None  # see segment_args
+
+    def _segment_sources(self):
+        return (self.conv_depthwise.weight, *(getattr(bn, name) for bn in (self.bn1, self.bn2)
+                                              for name in _BN_TENSORS))
 
     def segment_args(self):
-        """(taps (5,5,C), s1, b1, s2, b2) for `depthwise_silu_segment`."""
+        """(taps (5,5,C), s1, b1, s2, b2) for `depthwise_silu_segment`, in
+        float32 (the kernel's weights): the affines are taken in the
+        weights' dtype, then widened, as the wrapper would. Made once and
+        reused while every source tensor is the same object with the same
+        version and storage, so an in-place change
+        (`copy_`, `load_state_dict`, `from_jax_variables`), `.to()` or
+        `defense_astype` makes them anew: a decode launches the kernel
+        with no small casts around it. Not cached where they are
+        differentiated (a weight that requires grad, or a torch.func
+        transform's tensor)."""
+        sources = self._segment_sources()
+        # a cast or a move gives a tensor new storage: its pointer changes
+        key = tuple((t._version, t.data_ptr()) for t in sources)
+        cached = self._segment_cache
+        if cached is not None and cached[0] == key and all(
+                a is b for a, b in zip(cached[1], sources)):
+            return cached[2]
         w = self.conv_depthwise.weight
-        taps = w.reshape(w.shape[0], 25).t().reshape(5, 5, w.shape[0]).contiguous()
-        return (taps, *bn_affine(self.bn1), *bn_affine(self.bn2))
+        taps = w.reshape(w.shape[0], 25).t().reshape(5, 5, w.shape[0])
+        args = tuple(t.float().contiguous()
+                     for t in (taps, *bn_affine(self.bn1), *bn_affine(self.bn2)))
+        wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+        if not any(t.requires_grad or wrapped(t) for t in sources):
+            self._segment_cache = (key, sources, args)
+        return args
 
     def forward(self, x):
         r = x
@@ -157,3 +188,68 @@ class DecCombinerCell(nn.Module):
 
     def forward(self, x, z):
         return self.conv(torch.cat([x, z], dim=1))
+
+
+def make_ar_mask(kh: int, kw: int, mirror: bool, zero_diag: bool) -> np.ndarray:
+    """Autoregressive kernel mask, (kh, kw) float32: the flattened taps' first
+    half kept, the centre tap INCLUDED exactly when zero_diag is True
+    (`half = (kh*kw)//2 + int(zero_diag)`, the reference's own quirk, which
+    every flow-equipped checkpoint depends on), optionally mirrored."""
+    mask = np.ones((kh * kw,), np.float32)
+    half = (kh * kw) // 2 + int(zero_diag)
+    mask[half:] = 0
+    if mirror:
+        mask = mask[::-1].copy()
+    return mask.reshape(kh, kw)
+
+
+class MaskedConv2d(nn.Conv2d):
+    """k x k convolution (padding k // 2) whose kernel is multiplied by the
+    autoregressive mask at every call, as in the JAX package, so a converted
+    kernel with non-zero masked taps still gives its result. `groups` =
+    channels is the flow cell's depthwise conv1."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, mirror: bool,
+                 zero_diag: bool, groups: int = 1, device=None):
+        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2,
+                         groups=groups, device=device)
+        self.mask_np = make_ar_mask(kernel_size, kernel_size, mirror, zero_diag)
+        self._masks: dict = {}  # the mask as a tensor, by (device, dtype)
+
+    def forward(self, x):
+        w = self.weight
+        mask = self._masks.get((w.device, w.dtype))
+        if mask is None:
+            mask = torch.tensor(self.mask_np, dtype=w.dtype, device=w.device)
+            self._masks[(w.device, w.dtype)] = mask
+        return F.conv2d(x, w * mask, self.bias, padding=self.padding, groups=self.groups)
+
+
+class NFCell(nn.Module):
+    """z - (masked conv3x3 -> ELU -> masked depthwise 5x5 -> ELU -> masked
+    conv1x1)(z)."""
+
+    def __init__(self, num_z: int, mirror: bool, device=None):
+        super().__init__()
+        hidden = num_z * 6
+        self.conv0 = MaskedConv2d(num_z, hidden, 3, mirror, zero_diag=True, device=device)
+        self.conv1 = MaskedConv2d(hidden, hidden, 5, mirror, zero_diag=False,
+                                  groups=hidden, device=device)
+        self.conv2 = MaskedConv2d(hidden, num_z, 1, mirror, zero_diag=False, device=device)
+
+    def forward(self, z):
+        h = F.elu(self.conv0(z))
+        h = F.elu(self.conv1(h))
+        return z - self.conv2(h)
+
+
+class NFBlock(nn.Module):
+    """Two flow cells: `cell1` not mirrored, then `cell2` mirrored."""
+
+    def __init__(self, num_z: int, device=None):
+        super().__init__()
+        self.cell1 = NFCell(num_z, mirror=False, device=device)
+        self.cell2 = NFCell(num_z, mirror=True, device=device)
+
+    def forward(self, z):
+        return self.cell2(self.cell1(z))

@@ -4,8 +4,10 @@ gen_adversarial_tpu/models/nvae/model.py).
 Submodules carry the JAX variable tree's names (`init_conv`,
 `pre_cells_0_0`, `enc_cells_1_0_0`, `dec_sampler_1_1`, ...: a ModuleDict
 attribute plus its key), so `core/convert.py` loads JAX weights by name.
-The module is built in eval mode. The training forward, `sample`,
-`reconstruct` and the normalizing-flow cells come with later slices.
+The module is built in eval mode. With `num_nf_cells` set, each latent
+group has that many normalizing-flow blocks (`nf_cells_{s}_{g}_{i}`), applied
+to the group's z after its mix, as the JAX purify does. The training
+forward, `sample` and `reconstruct` come with later slices.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gen_adversarial_tpu_torch.models.nvae.cells import (
-    Conv1x1, DecCombinerCell, EncCombinerCell, ResidualCellDecoder,
+    Conv1x1, DecCombinerCell, EncCombinerCell, NFBlock, ResidualCellDecoder,
     ResidualCellEncoder)
 from gen_adversarial_tpu_torch.models.nvae.distributions import (
     DiscMixLogistic, Normal, as_draws)
@@ -82,8 +84,6 @@ class NVAEConfig:
 class NVAE(nn.Module):
     def __init__(self, cfg: NVAEConfig, device="cuda"):
         super().__init__()
-        if cfg.num_nf_cells is not None:
-            raise NotImplementedError("normalizing-flow cells are not ported yet")
         self.cfg = cfg
         base = cfg.initial_channels
         gps = cfg.groups_per_scale
@@ -123,15 +123,18 @@ class NVAE(nn.Module):
         top_ch = base * top_mult
         self.encoder_0_conv = Conv1x1(top_ch, top_ch, device=device)
 
-        enc_sampler, dec_sampler = {}, {}
+        enc_sampler, dec_sampler, nf = {}, {}, {}
         for s in range(cfg.num_scales):
             ch = top_ch // (2 ** s)
             for g in range(gps[s]):
                 enc_sampler[f"{s}_{g}"] = nn.Conv2d(ch, 2 * z, 3, padding=1, device=device)
+                for i in range(cfg.num_nf_cells or 0):
+                    nf[f"{s}_{g}_{i}"] = NFBlock(z, device=device)
                 if not (s == 0 and g == 0):
                     dec_sampler[f"{s}_{g}"] = Conv1x1(ch, 2 * z, device=device)
         self.enc_sampler = nn.ModuleDict(enc_sampler)
         self.dec_sampler = nn.ModuleDict(dec_sampler)
+        self.nf_cells = nn.ModuleDict(nf)
 
         dec, dec_comb = {}, {}
         for s in range(cfg.num_scales):
@@ -188,6 +191,11 @@ class NVAE(nn.Module):
         x = F.elu(self.encoder_0_conv(F.elu(x)))
         return feats, x
 
+    def _apply_nf(self, s, g, z):
+        for i in range(self.cfg.num_nf_cells or 0):
+            z = self.nf_cells[f"{s}_{g}_{i}"](z)
+        return z
+
     def _postprocess_to_logits(self, x):
         for b in range(self.cfg.n_pre_post_blocks):
             for c in range(self.cfg.n_pre_post_cells):
@@ -220,7 +228,8 @@ class NVAE(nn.Module):
     def purify_decode(self, state, alphas, draws, temperature: float = 0.6):
         """Stochastic half of `purify`: at every latent group,
         (1 - alpha) * posterior mean + alpha * prior sample (temperature),
-        decoded to the mixture mean. `draws`: a `torch.Generator`, or the
+        each mixed latent through its flow blocks (if any), decoded to the
+        mixture mean. `draws`: a `torch.Generator`, or the
         eps tensors (NCHW, the shape of each group's mean) in draw order,
         z_0 first, then each group in decode order. Returns NHWC images in
         [0, 1]."""
@@ -232,6 +241,7 @@ class NVAE(nn.Module):
         dist_dec = Normal(torch.zeros_like(mu_q), torch.zeros_like(log_sig_q),
                           temp=temperature)
         z_0 = (1 - alphas[0]) * dist_enc.mu + alphas[0] * dist_dec.sample(draws)[0]
+        z_0 = self._apply_nf(0, 0, z_0)
 
         def group_fn(s, g, x, latent_idx):
             comb = self.enc_combiners[f"{s}_{g}"](feats[f"{s}_{g}"], x)
@@ -240,7 +250,7 @@ class NVAE(nn.Module):
             dist_enc = Normal(mu_p + mu_q, log_sig_p + log_sig_q)
             dist_dec = Normal(mu_p, log_sig_p, temp=temperature)
             a = alphas[latent_idx]
-            return (1 - a) * dist_enc.mu + a * dist_dec.sample(draws)[0]
+            return self._apply_nf(s, g, (1 - a) * dist_enc.mu + a * dist_dec.sample(draws)[0])
 
         x = self._decode_groups(b, z_0, group_fn)
         out = DiscMixLogistic(self._postprocess_to_logits(x)).mean()

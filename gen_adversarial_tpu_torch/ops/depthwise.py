@@ -239,7 +239,15 @@ def depthwise_silu_segment(x, taps, s0, b0, s1, b1):
     """silu(DW5x5(silu(x*s0+b0)) * s1 + b1) in one pass; differentiable.
 
     x: (N, C, H, W), float32 or bfloat16, channels_last on CUDA; taps
-    (5, 5, C); affines (C,), cast to float32 here. A CUDA tensor launches the
-    kernel of x's dtype (or raises); a CPU tensor runs the plain version."""
+    (5, 5, C); affines (C,), cast to float32 here (the decoder cells hand
+    them over as float32 already). A CUDA tensor launches the kernel of x's
+    dtype (or raises); a CPU tensor runs the plain version. Where nothing is
+    differentiated (no tensor requires grad under grad mode, no torch.func
+    transform) a CUDA call launches without the autograd Function's host
+    cost, tens of µs a launch on a path the host sets the pace of."""
     _check(x, taps, s0, b0, s1, b1)
-    return _Segment.apply(x, *(t.float() for t in (taps, s0, b0, s1, b1)))
+    args = (x, *(t if t.dtype == torch.float32 else t.float() for t in (taps, s0, b0, s1, b1)))
+    if x.is_cuda and not torch._C._are_functorch_transforms_active() and not (
+            torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        return _launch(*args)
+    return _Segment.apply(*args)

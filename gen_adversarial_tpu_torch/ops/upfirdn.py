@@ -5,9 +5,11 @@ Replaces the Pallas TPU kernel of gen_adversarial_tpu/ops/pallas_upfirdn.py
 (`pallas_blur` / `pallas_blur_diff`, body `_blur_kernel`). What bounds it on
 an H100 is memory: per element about one read of x and one write of y
 (8 bytes in float32, 4 in bfloat16) against 2 * taps multiply-adds. The
-kernel reads x once into a shared-memory tile with its halo, zero-padding at
-the edges as it loads (no padded copy of x), runs the vertical then the
-horizontal pass, and writes y once (see the source's header).
+kernel reads x once with its halo, zero-padding at the edges as it loads (no
+padded copy of x), runs the vertical then the horizontal pass on chip, and
+writes y once. The float32 build moves one channel a lane; the bfloat16
+build eight, in 16-byte loads and stores, with a masked scalar path for
+widths that are not a multiple of 8 (see the source's header).
 
 `x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
 reads it as NHWC), float32 or bfloat16 (the model's dtype, which y keeps;
@@ -74,21 +76,26 @@ def blur_plain(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
 _lib_handle = None
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of a built `csrc/upfirdn_blur.cu` (or of
+    another version of it, as an A/B builds) on `lib`; returns `lib`."""
+    for name in ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _lib():
     """The built library with its C signatures declared (built at first use)."""
     global _lib_handle
     if _lib_handle is None:
         from gen_adversarial_tpu_torch.core.cuda_build import load
-        lib = load(SOURCE)[SOURCE].lib
-        for name in ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = (
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        lib.gat_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.gat_cuda_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
+        _lib_handle = declare(load(SOURCE)[SOURCE].lib)
     return _lib_handle
 
 
@@ -112,13 +119,15 @@ def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]):
             raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
 
 
-def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> torch.Tensor:
+def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int], lib=None) -> torch.Tensor:
+    # `lib`: another build of the kernel (`declare`d), as an A/B launches it
     n, c, h, w = x.shape
     y = torch.empty((n, c, out_size(h, len(taps), pad), out_size(w, len(taps), pad)),
                     device=x.device, dtype=x.dtype, memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    lib = _lib()
+    if lib is None:
+        lib = _lib()
     host_taps = (ctypes.c_float * len(taps))(*taps)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, ENTRY[x.dtype])(

@@ -30,9 +30,11 @@ import time
 
 def kind_of(name: str) -> str:
     n = name.lower()
-    if "segment_kernel" in n:
+    # K1's and K2's kernels in both builds: segment_{f32,bf16}_kernel and
+    # blur_{f32,bf16}_kernel
+    if "segment_f32_kernel" in n or "segment_bf16_kernel" in n:
         return "k1_depthwise_segment"
-    if "blur_kernel" in n:
+    if "blur_f32_kernel" in n or "blur_bf16_kernel" in n:
         return "k2_upfirdn_blur"
     if any(s in n for s in ("conv", "fprop", "implicit", "winograd", "cudnn", "xmma")):
         return "convolution"

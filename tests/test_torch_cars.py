@@ -165,17 +165,16 @@ def _cars_pair(models, noise_eps, b=B, float64=False, bf16=False):
     dtype = torch.float64 if float64 else torch.float32
     draws = ([np.concatenate(noise)] if noise_eps > 0 else []) + [np.concatenate(mix, axis=1)]
     ttrans, tclf = models["ttrans"], models["tclf"]
-    if float64 or bf16:
-        ttrans, tclf = copy.deepcopy(ttrans), copy.deepcopy(tclf)
-    if float64:
-        ttrans, tclf = ttrans.double(), tclf.double()
     tenc, tdec = make_trans_purify_split(ttrans)
     tdef = MLVGMDefense(
-        ttrans, tclf, torch.tensor(models["alphas"], dtype=dtype), tenc, tdec,
+        ttrans, tclf, torch.tensor(models["alphas"]), tenc, tdec,
         make_classifier_apply(tclf), initial_noise_eps=noise_eps,
         normalize_before_purify=True, image_size=IMAGE_SIZE)
+    # cast copies: the float32 modules stay the fixture's
+    if float64:
+        tdef = copy.deepcopy(tdef).double()
     if bf16:
-        defense_astype(tdef)
+        tdef = defense_astype(copy.deepcopy(tdef))
     tnet = eot_wrap(tdef, eot_steps=EOT)
     return ((lambda d, x: jax_eot_wrap(d, eot_steps=EOT)(key, x)), jdef, jax_call,
             (lambda x: tnet(x, [torch.tensor(d, dtype=dtype) for d in draws])))

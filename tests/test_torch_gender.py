@@ -132,15 +132,13 @@ def _gender_pair(models, noise_eps, chunk, eot=4, float64=False, bf16=False):
             draws.append(np.concatenate([noise[d] for d in ds]))
         draws.append(np.concatenate([mix[d] for d in ds], axis=1))
     tpsp, tclf = models["tpsp"], models["tclf"]
-    if bf16:
-        tpsp, tclf = copy.deepcopy(tpsp), copy.deepcopy(tclf)
     tenc, tdec = make_e4e_purify_split(tpsp)
     tdef = MLVGMDefense(
         tpsp, tclf, torch.tensor(models["alphas"]), tenc, tdec,
         make_classifier_apply(tclf), initial_noise_eps=noise_eps,
         normalize_before_purify=True)
-    if bf16:
-        defense_astype(tdef)
+    if bf16:  # a cast copy: the float32 modules stay the fixture's
+        tdef = defense_astype(copy.deepcopy(tdef))
     tnet = eot_wrap(tdef, eot_steps=eot, chunk=chunk)
     return ((lambda d, x: jax_eot_wrap(d, eot_steps=eot, chunk=chunk)(key, x)), jdef,
             jax_call, (lambda x: tnet(x, [torch.tensor(d) for d in draws])))

@@ -7,6 +7,8 @@ also runs on a machine that has only PyTorch:
 (`--noconftest` skips tests/conftest.py, which sets up JAX for the other
 tests.)"""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from gen_adversarial_tpu_torch.core.precision import BF16_GAP_FACTOR
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.flagship import flagship
 from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
+from gen_adversarial_tpu_torch.models.stylegan2.generator import GENERATOR_CHANNELS
 from gen_adversarial_tpu_torch.ops import depthwise as k1
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
 
@@ -301,6 +304,88 @@ def test_cuda_bf16_kernels_match_plain_versions():
         torch.testing.assert_close(xk.grad, xp.grad, **BF16_TOL)
 
 
+def _assert_within_one_ulp(got, want, what):
+    """Every element within one bfloat16 spacing of want (2**-7 of its
+    binade) or within the float32 kernels' absolute tolerance (1e-5 of the
+    output's scale): near 0 the two float32 sums' orders alone differ by
+    more spacings than one."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    atol = 1e-5 * max(1.0, want.abs().max().item())
+    bad = ((d > spacing) & (d > atol)).sum().item()
+    assert bad == 0, f"{what}: {bad} elements beyond one ulp, max abs err {d.max().item()}"
+
+
+# K2's sites on the main paths: (C, H_in) of the blur after each up-conv of
+# the 1024-px (gender) and the 512-px (cars) generator
+K2_PATH_SITES = [(GENERATOR_CHANNELS[r], r + 1) for r in (2 ** i for i in range(3, 11))]
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_redesigned_builds_on_every_path_shape():
+    """The bfloat16 builds at every shape their paths give them, at a small
+    batch: K1 at the flagship's seven shapes within one bfloat16 ulp of its
+    plain version; K2 at every gender and cars site (the cars sites are the
+    gender ones up to 512 px) bit-identical to its plain version, which sums
+    in float32 in the same order and rounds once."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for c, h in FLAGSHIP_SEGMENTS:
+        x = _channels_last((2, c, h, h), gen).bfloat16()
+        taps = torch.randn(5, 5, c, device="cuda", generator=gen) * 0.2
+        aff = [torch.randn(c, device="cuda", generator=gen) * 0.5 + 1 for _ in range(4)]
+        got = k1.depthwise_silu_segment(x, taps, *aff)
+        _assert_within_one_ulp(got, k1.depthwise_silu_segment_plain(x, taps, *aff), (c, h))
+    taps = tuple(2.0 * t / 8 for t in (1, 3, 3, 1))
+    for c, h in K2_PATH_SITES:
+        x = _channels_last((2, c, h, h), gen).bfloat16()
+        before = k2.launches_by_dtype[torch.bfloat16]
+        got = k2.upfirdn_blur(x, taps, (1, 1))
+        assert k2.launches_by_dtype[torch.bfloat16] == before + 1
+        assert torch.equal(got, k2.blur_plain(x, taps, (1, 1))), (c, h)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_redesigned_builds_ragged():
+    """The ragged cases of the bfloat16 builds: K2 at channel counts that are
+    not multiples of 8 (the masked scalar path) or of 32 (a partial channel
+    tile), pads (2, 2) and negative pads, 3 taps, 8-px maps and sizes that
+    leave partial tiles, bit-identical; K1 at widths that are multiples of 8
+    but not of 32, and sizes that leave partial tiles, within one ulp; both
+    under torch.func.vmap, whose rule folds the batch into N (one launch)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    asym = (0.1, 0.2, 0.3, 0.4)
+    for shape, taps, pad in [((2, 3, 9, 9), asym, (1, 1)), ((1, 13, 20, 37), asym, (2, 2)),
+                             ((2, 45, 33, 31), (1 / 7, 2 / 7, 4 / 7), (1, 1)),
+                             ((2, 40, 8, 8), asym, (2, 2)), ((1, 72, 31, 70), asym, (-1, 2)),
+                             ((3, 24, 17, 17), (1 / 7, 2 / 7, 4 / 7), (0, -1)),
+                             ((1, 512, 9, 9), asym, (1, 1))]:
+        x = _channels_last(shape, gen).bfloat16()
+        got = k2.upfirdn_blur(x, taps, pad)
+        assert torch.equal(got, k2.blur_plain(x, taps, pad)), (shape, taps, pad)
+    for n, c, h, w in [(1, 40, 13, 5), (3, 48, 17, 33), (2, 72, 8, 8), (1, 200, 37, 21)]:
+        x = _channels_last((n, c, h, w), gen).bfloat16()
+        taps = torch.randn(5, 5, c, device="cuda", generator=gen) * 0.2
+        aff = [torch.randn(c, device="cuda", generator=gen) * 0.5 + 1 for _ in range(4)]
+        got = k1.depthwise_silu_segment(x, taps, *aff)
+        _assert_within_one_ulp(got, k1.depthwise_silu_segment_plain(x, taps, *aff), (c, h, w))
+    # vmap over a leading dim: one launch each, as the plain version per slice
+    xs = torch.randn(3, 2, 40, 17, 17, device="cuda", generator=gen).bfloat16()
+    before = k2.launches
+    got = torch.func.vmap(lambda v: k2.upfirdn_blur(v, asym, (1, 1)))(xs)
+    assert k2.launches == before + 1
+    assert torch.equal(got, torch.stack([k2.blur_plain(v, asym, (1, 1)) for v in xs]))
+    taps = torch.randn(5, 5, 40, device="cuda", generator=gen) * 0.2
+    aff = [torch.randn(40, device="cuda", generator=gen) * 0.5 + 1 for _ in range(4)]
+    before = k1.launches
+    got = torch.func.vmap(lambda v: k1.depthwise_silu_segment(v, taps, *aff))(xs)
+    assert k1.launches == before + 1
+    want = torch.stack([k1.depthwise_silu_segment_plain(v, taps, *aff) for v in xs])
+    _assert_within_one_ulp(got, want, "vmap")
+
+
 @pytest.mark.gpu
 def test_cuda_bf16_segment_refuses_what_it_cannot_stage():
     """In bfloat16 a TMA row pitch of C x 2 bytes is a multiple of 16 only
@@ -335,10 +420,9 @@ def test_small_bf16_defense_on_gpu_against_cpu():
                      num_latent_per_group=4, num_mixtures=3)
     kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=(16, "M", 32, "M"),
               n_classes=10)
-    # three builds from one seed: a defense's purify halves hold its modules,
-    # so a deepcopy would share them
-    cpu, cpu16 = flagship(device="cpu", **kw), flagship(device="cpu", **kw)
-    gpu = flagship(device="cuda", **kw)
+    # one build and its deep copies, each computing from its own weights
+    cpu = flagship(device="cpu", **kw)
+    cpu16, gpu = copy.deepcopy(cpu), copy.deepcopy(cpu).cuda()
     eot, b = 4, 2
     rng = np.random.RandomState(4)
     x = torch.tensor(rng.rand(b, 32, 32, 3).astype(np.float32))
@@ -347,7 +431,6 @@ def test_small_bf16_defense_on_gpu_against_cpu():
     with torch.no_grad():
         want = eot_wrap(cpu, eot)(x, draws)
         cpu16 = eot_wrap(defense_astype(cpu16), eot)(x, draws)
-        gpu.load_state_dict(cpu.state_dict())
         before = k1.launches
         got = eot_wrap(defense_astype(gpu), eot)(x.cuda(), draws).cpu()
     assert k1.launches - before == len(cfg.decoder_segment_shapes())

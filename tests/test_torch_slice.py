@@ -268,6 +268,7 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "attacks/utils.py", "attacks/fgsm.py", "attacks/deepfool.py", "attacks/cw.py",
     "attacks/apgd.py", "attacks/fab.py", "attacks/autoattack.py", "core/config.py",
     "eval/factory.py", "core/precision.py",
+    "models/nvae/cells.py", "ab_k1.py", "ab_k2.py",
 ]
 
 
