@@ -43,8 +43,17 @@ copies of the three small defenses and the small ids class gradients in
 bfloat16 on the GPU against the CPU's float32, within twice the CPU's own
 bfloat16 distance;
 `attack_bf16` runs APGD-CE on the bfloat16 flagship and, with remat, on the
-bfloat16 gender defense. Every phase prints one JSON line with its elapsed
-seconds;
+bfloat16 gender defense. Phase `attack_remat` also takes one CE input
+gradient of the full gender defense under each `remat_policy`. Last,
+`harness` runs the evaluation entry points on the float32 flagship from
+files: its NVAE and VGG written as flax msgpack checkpoints
+(core/convert.to_jax_variables, core/checkpoint.save_variables), a copy of
+configs/ours_linear_noise_ids.yaml pointing at them, 6 PNG images in two
+class folders; `eval/factory.load_defense` (its logits held against the
+built defense's on the same draws) and `eval/harness.run_benchmark` under
+DeepFool and C&W at short budgets, with plots, checked as results.json (each
+attack moves an image classified right to a finite minimal L2) and PNG
+files. Every phase prints one JSON line with its elapsed seconds;
 the second-to-last line summarises the kernels (K1 and K2, each in float32
 and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -92,9 +101,9 @@ BLUR_PAD = (1, 1)  # the blur after a 3x3 up-convolution
 # the cars defense: batch 4 images x EoT-32, all 32 draws in one batch
 CARS_BATCH = 4
 CARS_EOT_CHUNK = None
-# K2 at the cars shapes: its plain version and the library call are timed at
-# fewer launches (each is ~0.1-0.3 s at the 512-px shape)
-CARS_SLOW_REPS = 5
+# K2's plain version and the library call are timed at fewer launches (each
+# is ~0.1-0.3 s at a 512- or 1024-px shape)
+K2_SLOW_REPS = 5
 # the attacks, GPU vs CPU on a small defense (phase `attacks_parity`): a few
 # steps of each; bounds (relative) and adversarial images (absolute, in
 # [0, 1]) after steps that each take a float32 input gradient
@@ -120,6 +129,22 @@ REMAT_RTOL = 1e-5
 # launches
 BF16_KERNEL_RTOL = 2.0 ** -7
 BF16_SLOW_REPS = 5
+# phase `harness`: the flagship's results.json over 6 images at batch 4 (one
+# full batch, one ragged batch of 2), DeepFool at ATTACK_DF_ITERS steps with
+# its cotangents in blocks of ATTACK_COT_CHUNK, C&W at HARNESS_CW_STEPS steps
+# and one restart. The random head's class-0 bias puts image 0 on class 0 by
+# HARNESS_MARGIN_SIGMAS x the draw-to-draw std of its margin, so the attacks
+# have a correctly classified image they can move at these budgets
+HARNESS_BATCH = 4
+HARNESS_IMAGES = 6
+HARNESS_CW_STEPS = 4
+HARNESS_MARGIN_SIGMAS = 2.0
+HARNESS_SEED = 42  # run_benchmark's seed: its draws are computed here too
+# the gender CE gradient under a remat_policy against policy None (phase
+# attack_remat): the same function, but cuDNN may run other algorithms,
+# and with random weights this gradient agrees only to ~1e-3 between them in
+# float32 (phase grad); a recompute that drew afresh would differ by O(1)
+POLICY_RTOL = 1e-2
 
 T0 = time.monotonic()
 
@@ -194,7 +219,7 @@ def main() -> int:
         return {"kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": line,
                 "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    run_phase("device", device_phase)
+    device_info = run_phase("device", device_phase)
 
     def build_phase():
         # one nvcc per source, all started together
@@ -345,11 +370,11 @@ def main() -> int:
     # normalized, times the factor 2 of an up-convolution
     taps = tuple(2.0 * t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
 
-    def k2_rows(sites, n, slow_reps=KERNEL_REPS):
+    def k2_rows(sites, n):
         """K2 against its plain version at each (C, H_in) of `sites` on a
         batch of n, timed with the plain version, the library call, a copy of
         the same bytes and the bound; the plain version and the library call
-        at `slow_reps` launches."""
+        at K2_SLOW_REPS launches."""
         kf = torch.tensor(taps[::-1], device=dev)
         rows = []
         for c, h in sites:
@@ -366,11 +391,11 @@ def main() -> int:
                                    f"max abs err {err} > {K2_TOL * scale}")
             w2d = torch.outer(kf, kf).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
-            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), slow_reps)
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), K2_SLOW_REPS)
             # at pad (1, 1) one depthwise convolution with the 2-D taps is the
             # same function
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
-                                 slow_reps)
+                                 K2_SLOW_REPS)
             copy = torch.empty_like(x)
             copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
             del copy
@@ -410,7 +435,7 @@ def main() -> int:
         del x, g, xk, xp
         torch.cuda.empty_cache()
         return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
-                "shapes": rows,
+                "slow_reps": K2_SLOW_REPS, "shapes": rows,
                 "backward": {"C": c, "H_in": h, "max_abs_err": bwd_err, "tol": bwd_tol,
                              "launches": backward_launches}}
 
@@ -504,8 +529,8 @@ def main() -> int:
 
     def kernels_k2_cars_phase():
         return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
-                "slow_reps": CARS_SLOW_REPS,
-                "shapes": k2_rows(k2_cars_sites, n_cars, CARS_SLOW_REPS)}
+                "slow_reps": K2_SLOW_REPS,
+                "shapes": k2_rows(k2_cars_sites, n_cars)}
 
     kernels2_cars = run_phase("kernels_k2_cars", kernels_k2_cars_phase)
 
@@ -877,7 +902,31 @@ def main() -> int:
             "k2_launches": k2.launches, "k1_launches": k1.launches}
         if k2.launches == 0:
             raise RuntimeError("the gender attack did not go through K2")
-        del defense, net, res
+        del res
+        # one CE input gradient (what an APGD-CE step takes) under each
+        # remat_policy, its seconds and peak beside policy None's
+        by_policy, grads = {}, {}
+        for policy in (None, *REMAT_POLICIES):
+            defense.remat_policy = policy
+
+            def ce_grad():
+                x = images.clone().requires_grad_(True)
+                logits = net(x, torch.Generator(device=dev).manual_seed(9))
+                return torch.autograd.grad(F.cross_entropy(logits, labels), x)[0]
+
+            before = k2.launches
+            grads[policy], sec, peak = timed(ce_grad)
+            by_policy[str(policy)] = {"seconds": sec, "max_memory_allocated_gb": peak,
+                                      "k2_launches": k2.launches - before}
+            if policy is not None:
+                err = rel_err(grads[policy], grads[None])
+                by_policy[str(policy)]["rel_err_vs_none"] = err
+                if not math.isfinite(err) or err > POLICY_RTOL:
+                    raise RuntimeError(f"gender CE gradient under {policy}: {err} from policy "
+                                       f"None's > {POLICY_RTOL}")
+        defense.remat_policy = None
+        out["gender_ce_grad_by_policy"] = {"batch": GENDER_BATCH, **by_policy}
+        del defense, net, grads
         torch.cuda.empty_cache()
 
         defense = cars.cars_defense(device=dev, seed=0)
@@ -901,6 +950,8 @@ def main() -> int:
                                   "max_memory_allocated_gb": peak, "finite": True,
                                   "k2_launches": k2.launches, "k1_launches": k1.launches}
         return out
+
+    from gen_adversarial_tpu_torch.defenses.base import REMAT_POLICIES
 
     attack_rm = run_phase("attack_remat", attack_remat_phase)
     torch.cuda.empty_cache()
@@ -1266,6 +1317,196 @@ def main() -> int:
         return out
 
     attack16 = run_phase("attack_bf16", attack_bf16_phase)
+    torch.cuda.empty_cache()
+
+    def harness_phase():
+        # the evaluation entry points on the float32 flagship, from files
+        import dataclasses
+        import re
+        import tempfile
+        from functools import partial
+        from pathlib import Path
+
+        import numpy as np
+        from gen_adversarial_tpu_torch.core.checkpoint import load_variables, save_variables
+        from gen_adversarial_tpu_torch.core.config import DefenseConfig
+        from gen_adversarial_tpu_torch.core.convert import to_jax_variables
+        from gen_adversarial_tpu_torch.data import png
+        from gen_adversarial_tpu_torch.eval.factory import load_defense
+        from gen_adversarial_tpu_torch.eval.harness import (
+            ATTACK_JSON_NAMES, TITLE_STRIP, batch_generator, run_benchmark)
+
+        root = Path(__file__).resolve().parent
+        (root / ".scratch").mkdir(exist_ok=True)  # gitignored
+        out = {"nvidia_smi": device_info["nvidia_smi"], "batch": HARNESS_BATCH,
+               "images": HARNESS_IMAGES, "eot_steps": EOT_STEPS}
+        with tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch") as tmp:
+            tmp = Path(tmp)
+            built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+            # the config's alphas are rounded to two decimals: the built
+            # defense takes them, so the loaded one computes the same logits
+            cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
+            built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
+                                               * np.float32(cfg.alpha_attenuation)))
+            # 6 images in two class folders, 'a' (label 0: images 0-2, all in
+            # the first batch) and 'b' (label 1). Random weights put every
+            # image on one class by ~0.29 and move a logit by ~1e-3 from draw
+            # to draw, so no image would be classified right: the head's
+            # class-0 bias is raised until image 0 wins class 0 under the
+            # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
+            # margin over 8 draws (the harness's 4 stages of batch 0 and 4
+            # more). Images 1-2 then fall either side of the boundary.
+            rng = np.random.RandomState(0)
+            pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
+            for i, image in enumerate(pixels):
+                png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
+                          / f"{i}.png", image)
+            first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
+            net = eot_wrap(built, EOT_STEPS)
+
+            def margin_lost(logits):  # best other class minus class 0
+                return logits[:, 1:].max(1).values - logits[:, 0]
+
+            with torch.no_grad():
+                draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
+                draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
+                lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
+                sigma = lost.std().item()
+                built.classifier.classifier.fc1.bias[0] += \
+                    lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
+                clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
+            out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
+            # the 'a' images the harness's clean predictions get right
+            right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
+            if 0 not in right:
+                raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
+            del net, first
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            save_variables(tmp / "nvae.msgpack", to_jax_variables(built.purifier),
+                           {"config": dataclasses.asdict(FLAGSHIP_NVAE)})
+            save_variables(tmp / "vgg.msgpack", to_jax_variables(built.classifier),
+                           {"model_type": "vgg"})
+            out["checkpoint_write_s"] = time.monotonic() - t
+            out["checkpoint_gb"] = sum((tmp / f).stat().st_size
+                                       for f in ("nvae.msgpack", "vgg.msgpack")) / 1e9
+            # read: every array of both files to the device
+            t = time.monotonic()
+            n_bytes = 0
+            for f in ("nvae.msgpack", "vgg.msgpack"):
+                leaves = [load_variables(tmp / f)[0]]
+                while leaves:
+                    leaf = leaves.pop()
+                    if isinstance(leaf, dict):
+                        leaves.extend(leaf.values())
+                    else:
+                        n_bytes += torch.from_numpy(leaf).to(dev).numel() * leaf.itemsize
+            torch.cuda.synchronize()
+            out["checkpoint_read_s"] = time.monotonic() - t
+            out["checkpoint_read_gb"] = n_bytes / 1e9
+
+            text = (root / "configs" / "ours_linear_noise_ids.yaml").read_text()
+            text = re.sub(r"^classifier_path: .*$", f"classifier_path: {tmp / 'vgg.msgpack'}",
+                          text, flags=re.M)
+            text = re.sub(r"^autoencoder_path: .*$", f"autoencoder_path: {tmp / 'nvae.msgpack'}",
+                          text, flags=re.M)
+            config = tmp / "ours_linear_noise_ids.yaml"
+            config.write_text(text)
+
+            t = time.monotonic()
+            loaded = load_defense(str(config))
+            torch.cuda.synchronize()
+            out["load_defense_s"] = time.monotonic() - t
+            images = torch.rand(BATCH, 64, 64, 3, device=dev, generator=gen)
+            with torch.no_grad():
+                want = eot_wrap(built, EOT_STEPS)(images, torch.Generator(device=dev).manual_seed(13))
+                got = loaded.net(images, torch.Generator(device=dev).manual_seed(13))
+            err = (got - want).abs().max().item()
+            tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+            if not math.isfinite(err) or err > tol:
+                raise RuntimeError(f"the loaded flagship's logits differ from the built one's: "
+                                   f"{err} > {tol}")
+            out["loaded_vs_built"] = {"max_abs_err": err, "tol": tol}
+            del built, want, got
+            torch.cuda.empty_cache()
+
+            seconds = {"deepfool": [], "c&w": []}
+
+            def timed_attack(name, attack):
+                def run_attack(*args):
+                    torch.cuda.synchronize()
+                    t = time.monotonic()
+                    res = attack(*args)
+                    torch.cuda.synchronize()
+                    seconds[name].append(time.monotonic() - t)
+                    return res
+                return run_attack
+
+            s = ATTACK_SUITES["ids"]
+            loaded.attacks["deepfool"] = timed_attack("deepfool", partial(
+                attacks.deepfool_attack, num_classes=s.deepfool_num_classes,
+                overshoot=s.deepfool_overshoot, max_iter=ATTACK_DF_ITERS,
+                cotangent_chunk=ATTACK_COT_CHUNK))
+            loaded.attacks["c&w"] = timed_attack("c&w", partial(
+                attacks.cw_attack, c=s.cw_c, kappa=s.cw_kappa, steps=HARNESS_CW_STEPS,
+                lr=s.cw_lr, n_restarts=1, early_stopping_steps=s.cw_early_stopping_steps))
+            results_dir, logs = tmp / "results", []
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # counts from here on are this path's
+            t = time.monotonic()
+            for name in ("deepfool", "c&w"):
+                results = run_benchmark(loaded, str(tmp / "images"), str(results_dir),
+                                        batch_size=HARNESS_BATCH, seed=HARNESS_SEED,
+                                        attack_filter=name, log_fn=logs.append)
+            out["run_benchmark_s"] = time.monotonic() - t
+            out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+            out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            if k1.launches == 0:
+                raise RuntimeError("the harness did not go through K1")
+            written = json.loads((results_dir / "results.json").read_text())
+            keys = [ATTACK_JSON_NAMES["deepfool"], ATTACK_JSON_NAMES["c&w"]]
+            if written != results or sorted(written) != sorted(["Clean", *keys]):
+                raise RuntimeError(f"results.json has keys {sorted(written)}")
+            # the clean accuracy is the clean draw's; no class-1 logit comes
+            # near the top, so DeepFool finds the 'b' images misclassified
+            # already and reports 0; each attack moves an 'a' image that the
+            # clean predictions got right to a finite minimal L2 (100.0 marks
+            # no adversary; an 'a' image can also start misclassified under
+            # the attack's own draws)
+            if written["Clean"] != len(right) / HARNESS_IMAGES:
+                raise RuntimeError(f"clean accuracy {written['Clean']}, but images {right} of "
+                                   f"{HARNESS_IMAGES} are classified right")
+            beaten = {}
+            for key in keys:
+                values = written[key]
+                beaten[key] = [i for i in right if 0.0 < values[i] < 100.0]
+                if len(values) != HARNESS_IMAGES or not all(
+                        math.isfinite(v) and 0.0 <= v <= 100.0 for v in values) \
+                        or not beaten[key] or (key == ATTACK_JSON_NAMES["deepfool"] and any(
+                            values[HARNESS_IMAGES // 2:])):
+                    raise RuntimeError(f"results.json {key}: {values} (images {right} "
+                                       "classified right)")
+            plots = {}
+            for name in ("deepfool", "c&w"):
+                for i in (0, 5):
+                    pixels = png.read_rgb(results_dir / "plots" / f"{name}_example={i}.png")
+                    title = pixels[:TITLE_STRIP]
+                    if pixels.shape != (TITLE_STRIP + 64 + 12, 3 * (64 + 12), 3) \
+                            or title.max() == 0:
+                        raise RuntimeError(f"plot {name} {i}: shape {pixels.shape}, title "
+                                           f"drawn {bool(title.max())}")
+                    plots[f"{name}_example={i}"] = list(pixels.shape)
+            import importlib.util
+            out.update(results=written, classified_right=right, beaten=beaten, plots=plots,
+                       attack_s_per_batch=seconds,
+                       title_font="PIL ImageDraw" if importlib.util.find_spec("PIL")
+                       else "bitmap",
+                       progress_left=(results_dir / "progress_p0.json").exists(), log=logs)
+            if out["progress_left"]:
+                raise RuntimeError("the harness left its progress file")
+        return out
+
+    harness = run_phase("harness", harness_phase)
 
     def mean_call_s(phase):
         return sum(phase["call_s"][1:]) / TIMED_CALLS
@@ -1328,7 +1569,8 @@ def main() -> int:
               device_ms=device_ms("flagship", "busy_f32", "k1_depthwise_segment"),
               # launches in the attack phases (forwards, and recomputes under remat)
               attack_launches={"attacks_parity": attack_parity["k1_launches"],
-                               "attack_flagship": attack_flag["k1_launches"]}),
+                               "attack_flagship": attack_flag["k1_launches"],
+                               "harness": harness["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
         # `max_abs_err` cover both paths, and `cars` holds the cars path's
         entry("upfirdn_blur", "float32", k2.SOURCE,

@@ -1,0 +1,64 @@
+"""Attack-benchmark CLI (counterpart of gen_adversarial_tpu/cli/test_defense.py).
+
+Usage:
+  python -m gen_adversarial_tpu_torch.cli.test_defense \\
+      --config configs/ours_cosine_noise_cars.yaml \\
+      --images-path /data/cars/test \\
+      --results-folder results/ours_cosine_noise_cars \\
+      [--attack deepfool|c&w|autoattack] [--batch-size 8] [--eot-steps 32] \\
+      [--device cuda]
+
+The config's checkpoint paths point at flax msgpack files (written by either
+package's `save_variables`); the images are a folder of class folders.
+It runs on one CUDA device unless --device cpu is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv: list[str] | None = None) -> dict:
+    p = argparse.ArgumentParser("GPU attack benchmark")
+    p.add_argument("--config", required=True)
+    p.add_argument("--images-path", required=True)
+    p.add_argument("--results-folder", required=True)
+    p.add_argument("--attack", default=None, choices=[None, "deepfool", "c&w", "autoattack"])
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--eot-steps", type=int, default=32)
+    p.add_argument("--eot-chunk", type=int, default=None)
+    p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16 runs purifier+classifier in bfloat16 (weights cast once, "
+                        "float32 logits)")
+    p.add_argument("--remat-policy", default=None,
+                   choices=[None, "dots_saveable", "dots_with_no_batch_dims_saveable"],
+                   help="what the purifier's remat saves (the JAX jax.checkpoint_policies "
+                        "names; default saves nothing)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no-plots", action="store_true")
+    p.add_argument("--no-resume", action="store_true",
+                   help="ignore any per-batch progress file (progress_p*.json) and restart "
+                        "the eval from image 0")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="more than one device is not ported yet (raises)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process runs are not ported yet (raises)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    from gen_adversarial_tpu_torch.eval.factory import load_defense
+    from gen_adversarial_tpu_torch.eval.harness import run_benchmark
+
+    loaded = load_defense(args.config, eot_steps=args.eot_steps, eot_chunk=args.eot_chunk,
+                          dtype=args.dtype, remat_policy=args.remat_policy,
+                          device=args.device)
+    return run_benchmark(loaded, args.images_path, args.results_folder,
+                         batch_size=args.batch_size, seed=args.seed,
+                         attack_filter=args.attack, max_images=args.max_images,
+                         plots=not args.no_plots, n_devices=args.n_devices,
+                         distributed=args.distributed, resume=not args.no_resume)
+
+
+if __name__ == "__main__":
+    main()

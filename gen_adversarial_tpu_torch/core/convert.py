@@ -31,7 +31,13 @@ ModuleList attribute `convs`. Layouts change as flax -> torch needs:
   `StyleTransformer.latent_avg` (n_styles, 512; collection `buffers`).
 
 Every parameter and buffer of the module must be set exactly once, with the
-exact shape, or a ValueError says which one is wrong.
+exact shape, or a ValueError says which one is wrong. A leaf may also be a
+torch tensor (a bfloat16 leaf of `core/checkpoint.load_variables`); it is
+cast to the module's dtype as it is copied.
+
+`to_jax_variables` is the inverse: the module's parameters and buffers as the
+flax tree (numpy arrays in flax's layouts), which `core/checkpoint.py` writes
+and flax reads.
 """
 
 from __future__ import annotations
@@ -66,22 +72,47 @@ def _leaves(tree: Mapping, path=()):
         if isinstance(v, Mapping):
             yield from _leaves(v, path + (k,))
         else:
-            yield path + (k,), np.asarray(v)
+            yield path + (k,), v if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def _nhwc_to_nchw(a: np.ndarray) -> np.ndarray:
-    return a.transpose(0, 3, 1, 2)
+def _permute(a, *axes):
+    """a numpy array's or a tensor's dims in the order `axes`."""
+    return a.permute(*axes) if isinstance(a, torch.Tensor) else a.transpose(axes)
 
 
-def _same(a: np.ndarray) -> np.ndarray:
+def _t(a):
+    return _permute(a, 1, 0)
+
+
+def _hwio_to_oihw(a):
+    return _permute(a, 3, 2, 0, 1)
+
+
+def _nhwc_to_nchw(a):
+    return _permute(a, 0, 3, 1, 2)
+
+
+def _oihw_to_hwio(a):
+    return _permute(a, 2, 3, 1, 0)
+
+
+def _nchw_to_nhwc(a):
+    return _permute(a, 0, 2, 3, 1)
+
+
+def _same(a):
     return a
+
+
+# each layout change of the flax -> torch direction and its inverse
+_INVERSE = {_same: _same, _t: _t, _hwio_to_oihw: _oihw_to_hwio, _nhwc_to_nchw: _nchw_to_nhwc}
 
 
 # leaves of the port's own modules, by (class name, flax leaf name)
 _MODULE_LEAVES = {
-    ("EqualLinear", "weight"): lambda a: a.T,
+    ("EqualLinear", "weight"): _t,
     ("EqualLinear", "bias"): _same,
-    ("ModulatedConv2d", "weight"): lambda a: a.transpose(3, 2, 0, 1),
+    ("ModulatedConv2d", "weight"): _hwio_to_oihw,
     ("Generator", "const_input"): _nhwc_to_nchw,
     ("ToRGB", "bias"): _nhwc_to_nchw,
     ("NoiseInjection", "weight"): _same,
@@ -108,11 +139,11 @@ def _target(module: nn.Module, collection: str, names: tuple, leaf: str, arr: np
         return owner, _LN_LEAVES[leaf], arr
     if isinstance(owner, nn.Conv2d):
         if leaf == "kernel":
-            return owner, "weight", arr.transpose(3, 2, 0, 1)
+            return owner, "weight", _hwio_to_oihw(arr)
         return owner, leaf, arr
     if isinstance(owner, nn.Linear):
         if leaf == "kernel":
-            return owner, "weight", arr.T
+            return owner, "weight", _t(arr)
         return owner, leaf, arr
     if leaf == "const_prior":
         return owner, leaf, _nhwc_to_nchw(arr)
@@ -133,13 +164,15 @@ def from_jax_variables(variables: Mapping, module: nn.Module) -> nn.Module:
         for path, arr in _leaves(variables.get(collection, {})):
             owner, attr, value = _target(module, collection, path[:-1], path[-1], arr)
             dest = getattr(owner, attr)
-            if tuple(dest.shape) != value.shape:
-                raise ValueError(f"{'/'.join(path)}: flax {arr.shape} -> torch "
-                                 f"{value.shape}, module has {tuple(dest.shape)}")
+            if tuple(dest.shape) != tuple(value.shape):
+                raise ValueError(f"{'/'.join(path)}: flax {tuple(arr.shape)} -> torch "
+                                 f"{tuple(value.shape)}, module has {tuple(dest.shape)}")
             if id(dest) in done:
                 raise ValueError(f"{collection}/{'/'.join(path)} sets the tensor that "
                                  f"{done[id(dest)]} already set")
-            dest.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.ascontiguousarray(value))
+            dest.copy_(value)
             done[id(dest)] = f"{collection}/{'/'.join(path)}"
     missing = [name for name, t in list(module.named_parameters())
                + list(module.named_buffers())
@@ -148,3 +181,64 @@ def from_jax_variables(variables: Mapping, module: nn.Module) -> nn.Module:
         raise ValueError(f"not in the flax tree: {missing[:8]}"
                          + (" ..." if len(missing) > 8 else ""))
     return module
+
+
+def _torch_leaf(owner: nn.Module, attr: str):
+    """(collection, flax leaf name, torch layout -> flax layout) of a tensor,
+    the inverse of `_target`."""
+    kind = type(owner).__name__
+    if isinstance(owner, nn.modules.batchnorm._BatchNorm):
+        leaf = {v: k for k, v in _BN_LEAVES.items()}[attr]
+        return ("batch_stats" if leaf in ("mean", "var") else "params"), leaf, _same
+    if isinstance(owner, nn.LayerNorm):
+        return "params", {v: k for k, v in _LN_LEAVES.items()}[attr], _same
+    if isinstance(owner, nn.Conv2d) and attr == "weight":
+        return "params", "kernel", _oihw_to_hwio
+    if isinstance(owner, nn.Linear) and attr == "weight":
+        return "params", "kernel", _t
+    if isinstance(owner, (nn.Conv2d, nn.Linear)):
+        return "params", attr, _same
+    if attr == "const_prior":
+        return "params", attr, _nchw_to_nhwc
+    if kind == "Generator" and attr.startswith("noise_"):
+        return "noise", attr, _nchw_to_nhwc
+    rule = _MODULE_LEAVES.get((kind, attr))
+    if rule is None:
+        raise ValueError(f"no flax leaf for {kind}.{attr}")
+    return ("buffers" if attr == "latent_avg" else "params"), attr, _INVERSE[rule]
+
+
+def _flax_modules(module: nn.Module, path=()):
+    """(flax module path, module) of every module: a ModuleDict item `key` of
+    attribute `attr` is flax's `attr_key`, a ModuleList item i `attr_i`."""
+    yield path, module
+    for name, sub in module._modules.items():
+        if isinstance(sub, (nn.ModuleDict, nn.ModuleList)):
+            items = sub.items() if isinstance(sub, nn.ModuleDict) else enumerate(sub)
+            for key, item in items:
+                yield from _flax_modules(item, path + (f"{name}_{key}",))
+        elif sub is not None:
+            yield from _flax_modules(sub, path + (name,))
+
+
+@torch.no_grad()
+def to_jax_variables(module: nn.Module) -> dict:
+    """The flax variable tree of `module` (the inverse of `from_jax_variables`):
+    nested dicts of numpy arrays on the host (bfloat16 tensors for bfloat16
+    weights), in flax's layouts."""
+    tree: dict = {}
+    done = set()
+    for path, owner in _flax_modules(module):
+        tensors = list(owner._parameters.items()) + list(owner._buffers.items())
+        for attr, t in tensors:
+            if t is None or attr == "num_batches_tracked" or id(t) in done:
+                continue
+            done.add(id(t))
+            collection, leaf, layout = _torch_leaf(owner, attr)
+            node = tree.setdefault(collection, {})
+            for name in path:
+                node = node.setdefault(name, {})
+            host = t.detach().cpu()
+            # numpy has no bfloat16: such leaves stay tensors (core/checkpoint writes them)
+            node[leaf] = layout(host if host.dtype == torch.bfloat16 else host.numpy())
+    return tree

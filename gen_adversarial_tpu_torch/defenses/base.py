@@ -15,7 +15,14 @@ remat recomputes the purifier in the backward (torch.utils.checkpoint,
 non-reentrant; the JAX `remat_policy=None`, which saves nothing). It works
 under torch.autograd, not under torch.func, whose transforms refuse the
 checkpoint's saved-tensor hooks: the attacks (attacks/utils.class_grads)
-take their gradients through torch.autograd.
+take their gradients through torch.autograd. A `remat_policy` (the JAX
+`jax.checkpoint_policies` names of REMAT_POLICIES) saves the outputs of the
+matrix products it names and recomputes the rest (selective activation
+checkpointing). torch allows one backward per forward of such a region: a
+second one (class_grads with a cotangent_chunk below the class count)
+raises torch's "Trying to backward an extra time" RuntimeError. The kernels'
+ctypes launches inside their autograd Functions are no aten operations, so
+no policy saves them: they are recomputed, from the replayed draws.
 
 compute_dtype (set by core/precision.defense_astype, which also casts the
 weights once) runs the purifier and the classifier in that dtype (bfloat16):
@@ -30,15 +37,27 @@ from __future__ import annotations
 
 import math
 from collections.abc import Callable
+from functools import partial
 from typing import Any
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from gen_adversarial_tpu_torch.models.nvae.distributions import Draws, as_draws
 from gen_adversarial_tpu_torch.ops.blur import gaussian_blur2d
 from gen_adversarial_tpu_torch.ops.image import clamp01
+
+
+# remat_policy -> the aten operations whose outputs the checkpointed region
+# saves: jax.checkpoint_policies.dots_saveable saves every dot_general and
+# conv_general_dilated; dots_with_no_batch_dims_saveable only the dot_generals
+# without batch dimensions (the 2-D products)
+REMAT_POLICIES = {
+    "dots_saveable": ("convolution", "mm", "addmm", "bmm"),
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+}
 
 
 def blur_kernel_size(h: int) -> int:
@@ -68,13 +87,14 @@ class _RecordingDraws(Draws):
         return eps
 
 
-def _remat_call(fn: Callable, draws: Draws | None, *args):
+def _remat_call(fn: Callable, draws: Draws | None, *args, policy: str | None = None):
     """fn(*args, draws) with nothing of it saved for the backward, which
-    runs it again (torch.utils.checkpoint, non-reentrant). The draws of the
-    first run are recorded and replayed, in order, by every recompute (one
-    per backward pass), so each backward differentiates the forward that ran
-    and not one with fresh noise. Nothing else in a purifier is random, so
-    the global RNG states are not stashed."""
+    runs it again (torch.utils.checkpoint, non-reentrant), or, under a
+    `policy` of REMAT_POLICIES, only the outputs of its operations saved.
+    The draws of the first run are recorded and replayed, in order, by every
+    recompute (one per backward pass), so each backward differentiates the
+    forward that ran and not one with fresh noise. Nothing else in a
+    purifier is random, so the global RNG states are not stashed."""
     record: list[torch.Tensor] = []
     runs = 0
 
@@ -85,7 +105,12 @@ def _remat_call(fn: Callable, draws: Draws | None, *args):
             return fn(*a, None)
         return fn(*a, _RecordingDraws(draws, record) if runs == 1 else Draws(record))
 
-    return checkpoint(region, *args, use_reentrant=False, preserve_rng_state=False)
+    context_fn = noop_context_fn
+    if policy is not None:
+        ops = [getattr(torch.ops.aten, op).default for op in REMAT_POLICIES[policy]]
+        context_fn = partial(create_selective_checkpoint_contexts, ops)
+    return checkpoint(region, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn)
 
 
 class ClassifierDefense(nn.Module):
@@ -126,9 +151,9 @@ class MLVGMDefense(nn.Module):
     once for all draws (defenses/eot.py). apply_blur blurs the input with
     the kernel size of an image_size image before the noise. remat
     recomputes the purify (both halves, or each half on the shared-encode
-    route) in the backward instead of saving its activations; of the JAX
-    `remat_policy` names only None (save nothing) is ported. compute_dtype:
-    see the module docstring."""
+    route) in the backward instead of saving its activations, and
+    remat_policy (None: save nothing; or a name of REMAT_POLICIES) chooses
+    what it saves all the same. compute_dtype: see the module docstring."""
 
     def __init__(self, purifier: nn.Module, classifier: nn.Module, alphas: torch.Tensor,
                  purify_encode: Callable, purify_decode: Callable,
@@ -136,9 +161,9 @@ class MLVGMDefense(nn.Module):
                  normalize_before_purify: bool = False, apply_blur: bool = False,
                  image_size: int = 64, remat: bool = False, remat_policy: str | None = None):
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r}: only None (save nothing) is ported")
+        if remat_policy is not None and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: None or one of "
+                             f"{sorted(REMAT_POLICIES)}")
         self.purifier = purifier
         self.classifier = classifier
         self.register_buffer("alphas", alphas)
@@ -150,11 +175,12 @@ class MLVGMDefense(nn.Module):
         self.apply_blur = apply_blur
         self.image_size = image_size
         self.remat = remat
+        self.remat_policy = remat_policy
         self.compute_dtype = None
 
     def _call(self, fn, draws, *args):
         if self.remat:
-            return _remat_call(fn, draws, *args)
+            return _remat_call(fn, draws, *args, policy=self.remat_policy)
         return fn(*args, draws)
 
     def _purify(self, x, draws):

@@ -132,3 +132,14 @@ class ResNetBackbone(nn.Module):
 
 ResNet50 = partial(ResNetBackbone, layers=(3, 4, 6, 3))
 ResNeXt50 = partial(ResNetBackbone, layers=(3, 4, 6, 3), groups=32, base_width=4)
+
+
+def make_classifier(model_type: str, n_classes: int, device="cuda") -> nn.Module:
+    """The classifier of a model type ('resnet', 'resnext' or 'vgg')."""
+    if model_type == "resnet":
+        return ResNet50(n_classes, device=device)
+    if model_type == "resnext":
+        return ResNeXt50(n_classes, device=device)
+    if model_type == "vgg":
+        return VGG11BN(n_classes, device=device)
+    raise ValueError(model_type)

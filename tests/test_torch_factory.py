@@ -1,0 +1,235 @@
+"""The port's defense factory (eval/factory.py) against the JAX package's
+`load_defense` on the same checkpoints and configs, on the CPU: a tiny
+VGG11-BN classifier (both factories' `make_classifier` patched to build it)
+and a small ids NVAE whose config comes from the checkpoint's meta, written
+by the JAX `save_variables`; the `ours` family at initial noise eps 2.0 and
+at eps 0.0 with the input blur (the shared encode), the noise and blur
+ablations, `no_defense` and TRADES, under EoT-2 with every draw made by
+numpy and replayed on both sides. The gender and cars families load through
+the same factory from checkpoints the port wrote (their constructors
+patched small) and compute what the builders' defenses compute. A-VAE and
+ND-VAE raise; bfloat16 casts; 'cuda' without CUDA raises."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gen_adversarial_tpu.eval.factory as jax_factory
+import gen_adversarial_tpu_torch.eval.factory as factory
+from gen_adversarial_tpu.core.checkpoint import save_variables as jax_save
+from gen_adversarial_tpu.models.classifiers import VGG11BN as JaxVGG
+from gen_adversarial_tpu.models.nvae.model import NVAE as JaxNVAE
+from gen_adversarial_tpu.models.nvae.model import NVAEConfig as JaxNVAEConfig
+from gen_adversarial_tpu_torch.cars import cars_defense
+from gen_adversarial_tpu_torch.core.checkpoint import save_variables
+from gen_adversarial_tpu_torch.core.convert import to_jax_variables
+from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
+from gen_adversarial_tpu_torch.gender import gender_defense
+from gen_adversarial_tpu_torch.models.classifiers import ResNetBackbone, VGG11BN
+from gen_adversarial_tpu_torch.models.e4e.psp import PSP
+from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
+from gen_adversarial_tpu_torch.models.style_transformer.model import StyleTransformer
+from tests.torch_port_helpers import keyed_normal_call, one_torch_thread  # noqa: F401
+from tests.torch_port_helpers import random_variables
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+KEY = jax.random.PRNGKey(0)
+TINY_PLAN = (4, "M", 8, "M", 8, 8, "M", 8, 8, "M", 8, 8, "M")
+NVAE_CFG = dict(resolution=64, initial_channels=8, num_scales=2, num_groups_per_scale=2,
+                is_adaptive=False, num_cells_per_group=1, num_latent_per_group=4,
+                num_mixtures=3)
+ALPHAS = (0.1, 0.35, 0.6, 1.0)
+B, EOT, SIZE = 2, 2, 64
+# ~30 float32 convolution layers summed in another order, then a mean
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Checkpoints the JAX save_variables wrote, and one config per family."""
+    tmp = tmp_path_factory.mktemp("factory")
+    clf_vars = random_variables(jax.eval_shape(lambda: JaxVGG(n_classes=100, plan=TINY_PLAN)
+                                               .init(KEY, jnp.zeros((1, SIZE, SIZE, 3)),
+                                                     train=False)), 1)
+    jax_save(tmp / "vgg.msgpack", jax.tree.map(np.asarray, clf_vars), {"model_type": "vgg"})
+    nvae = JaxNVAE(JaxNVAEConfig(**NVAE_CFG))
+    nvae_vars = random_variables(jax.eval_shape(
+        lambda: nvae.init({"params": KEY}, jnp.zeros((1, SIZE, SIZE, 3)), KEY)), 2)
+    jax_save(tmp / "nvae.msgpack", jax.tree.map(np.asarray, nvae_vars), {"config": NVAE_CFG})
+    paths = f"classifier_path: {tmp / 'vgg.msgpack'}\nautoencoder_path: {tmp / 'nvae.msgpack'}\n"
+    alphas = "interpolation_alphas:\n" + "".join(f"- {a}\n" for a in ALPHAS)
+    configs = {
+        "ours_linear_noise_ids": alphas + "alpha_attenuation: 0.7\ninitial_noise_eps: 2.0\n"
+                                          "gaussian_blur_input: false\n",
+        "ours_linear_blur_ids": alphas + "alpha_attenuation: 0.7\ninitial_noise_eps: 0.0\n"
+                                         "gaussian_blur_input: true\n",
+        "ablation_noise_ids": "type: noise\n", "ablation_blur_ids": "type: blur\n",
+        "no_defense_ids": "", "competitor_trades_ids": "",
+        "competitor_avae_ids": "kernel_size: 4\n", "competitor_ndvae_ids": "noise_std: 0.05\n"}
+    for name, text in configs.items():
+        (tmp / f"{name}.yaml").write_text(paths + text)
+    return tmp
+
+
+@pytest.fixture()
+def tiny_classifier(monkeypatch):
+    """Both factories build the tiny VGG in place of VGG11-BN."""
+    monkeypatch.setattr(jax_factory, "make_classifier",
+                        lambda t, n: JaxVGG(n_classes=n, plan=TINY_PLAN))
+    monkeypatch.setattr(factory, "make_classifier",
+                        lambda t, n, device: VGG11BN(n, plan=TINY_PLAN, device=device))
+
+
+def _images(seed):
+    x = np.random.RandomState(seed).rand(B, SIZE, SIZE, 3).astype(np.float32)
+    x[0, 0, :4] = [[-0.2, 0.5, 1.3]] * 4  # out of the box: the clamp matters
+    return x
+
+
+def _draws(name):
+    """(jax_call, port draws) of EoT-2 over the family's numpy draws (see
+    tests/torch_port_helpers.keyed_normal_call); the JAX ablation draws its
+    noise with each draw's key itself."""
+    rng = np.random.RandomState(5)
+    noise = [rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32) for _ in range(EOT)]
+    if name.startswith("ablation_noise"):
+        table = {tuple(np.asarray(k).tolist()): n
+                 for k, n in zip(jax.random.split(KEY, EOT), noise)}
+        keys = jnp.asarray(np.stack([np.asarray(k) for k in jax.random.split(KEY, EOT)]))
+        vals = jnp.asarray(np.stack(list(table.values())))
+        real = jax.random.normal
+
+        def jax_call(fn):
+            def fake(k, shape=(), dtype=jnp.float32):
+                match = jnp.all(keys == k, axis=-1)
+                return jnp.where(jnp.any(match), vals[jnp.argmax(match)], jnp.nan).astype(dtype)
+            jax.random.normal = fake
+            try:
+                return fn()
+            finally:
+                jax.random.normal = real
+
+        return jax_call, [torch.tensor(np.concatenate(noise))]
+    if not name.startswith("ours"):
+        return (lambda fn: fn()), []
+    with_noise = "noise" in name
+    shapes = eps_shapes(NVAEConfig(**NVAE_CFG), B)
+    eps = [[rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(EOT)]
+    per_draw = [(noise[d] if with_noise else None,
+                 [e.transpose(0, 2, 3, 1) for e in eps[d]] + [None]) for d in range(EOT)]
+    draws = [np.concatenate(noise)] if with_noise else []
+    draws += [np.concatenate([eps[d][j] for d in range(EOT)]) for j in range(len(shapes))]
+    return keyed_normal_call(KEY, per_draw), [torch.tensor(d) for d in draws]
+
+
+@pytest.mark.parametrize("name", ["ours_linear_noise_ids", "ours_linear_blur_ids",
+                                  "ablation_noise_ids", "ablation_blur_ids", "no_defense_ids",
+                                  "competitor_trades_ids"])
+def test_load_defense_matches_jax(world, tiny_classifier, name):
+    config = str(world / f"{name}.yaml")
+    want_loaded = jax_factory.load_defense(config, eot_steps=EOT)
+    loaded = factory.load_defense(config, eot_steps=EOT, device="cpu")
+    for field in ("experiment", "defense_type", "image_size", "n_classes", "eot_steps",
+                  "eot_chunk", "dtype"):
+        assert getattr(loaded, field) == getattr(want_loaded, field), field
+    assert sorted(loaded.attacks) == sorted(want_loaded.attacks)
+    x = _images(3)
+    jax_call, draws = _draws(name)
+    want = jax_call(lambda: want_loaded.net(KEY, jnp.asarray(x)))
+    with torch.no_grad():
+        got = loaded.net(torch.tensor(x), draws)
+    assert np.all(np.isfinite(np.asarray(want)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ours_options_follow_the_jax_factory(world, tiny_classifier, monkeypatch):
+    """remat off for ids unless a policy asks for it; alphas times the
+    attenuation in float32; bfloat16 casts once; GAT_DF_COT_CHUNK reaches
+    the attacks."""
+    config = str(world / "ours_linear_noise_ids.yaml")
+    monkeypatch.setenv("GAT_DF_COT_CHUNK", "3")
+    loaded = factory.load_defense(config, device="cpu")
+    assert loaded.defense.remat is False and loaded.eot_steps == 32
+    assert loaded.attacks["deepfool"].keywords["cotangent_chunk"] == 3
+    want = jax_factory.load_defense(config).defense.alphas
+    np.testing.assert_array_equal(loaded.defense.alphas.numpy(), np.asarray(want))
+    monkeypatch.delenv("GAT_DF_COT_CHUNK")
+    loaded = factory.load_defense(config, remat_policy="dots_saveable", dtype="bfloat16",
+                                  device="cpu")
+    assert loaded.defense.remat is True and loaded.defense.remat_policy == "dots_saveable"
+    assert loaded.dtype == "bfloat16" and loaded.defense.compute_dtype == torch.bfloat16
+    assert loaded.defense.purifier.init_conv.weight.dtype == torch.bfloat16
+
+
+def test_a_remat_policy_with_a_cotangent_chunk_raises_before_loading(tmp_path, monkeypatch):
+    """Class gradients in blocks under a policy fail at their second
+    backward; load_defense refuses the pair before it reads any file."""
+    monkeypatch.setenv("GAT_DF_COT_CHUNK", "4")
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 1"):
+        factory.load_defense(str(tmp_path / "ours_linear_noise_ids.yaml"),
+                             remat_policy="dots_saveable", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["competitor_avae_ids", "competitor_ndvae_ids"])
+def test_competitors_raise_naming_the_roadmap_item(world, tiny_classifier, name):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        factory.load_defense(str(world / f"{name}.yaml"), device="cpu")
+
+
+def test_cuda_without_a_device_raises(world, tiny_classifier):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        factory.load_defense(str(world / "no_defense_ids.yaml"))
+
+
+def _small_family(family):
+    """A small builder defense, its purifier's constructor and its
+    classifier's, at the builder's reduced size."""
+    layers = (1, 1, 1, 1)
+    if family == "gender":
+        built = gender_defense(device="cpu", seed=3, stylegan_size=32, classifier_layers=layers)
+        return built, ("PSP", lambda size, device: PSP(32, device=device)), \
+            lambda t, n, device: ResNetBackbone(n, layers=layers, device=device)
+    built = cars_defense(device="cpu", seed=3, output_size=32, classifier_layers=layers)
+    return built, ("StyleTransformer", lambda size, device: StyleTransformer(32, device=device)), \
+        lambda t, n, device: ResNetBackbone(n, layers=layers, groups=32, base_width=4,
+                                            device=device)
+
+
+@pytest.mark.parametrize("family", ["gender", "cars"])
+def test_stylegan_families_load_through_the_factory(tmp_path, monkeypatch, family):
+    """The builder's small defense written by the port (to_jax_variables +
+    save_variables), loaded by load_defense with the constructors patched
+    small: remat on, and the same logits as the built defense on the same
+    draws (8 codes of the 32-px generator, so 8 alphas in the config)."""
+    built, (name, purifier), classifier = _small_family(family)
+    monkeypatch.setattr(factory, name, purifier)
+    monkeypatch.setattr(factory, "make_classifier", classifier)
+    save_variables(tmp_path / "purifier.msgpack", to_jax_variables(built.purifier))
+    save_variables(tmp_path / "classifier.msgpack", to_jax_variables(built.classifier))
+    alphas = np.round(np.linspace(0.05, 1.0, 8), 2)
+    (tmp_path / f"ours_linear_noise_{family}.yaml").write_text(
+        f"classifier_path: {tmp_path / 'classifier.msgpack'}\n"
+        f"autoencoder_path: {tmp_path / 'purifier.msgpack'}\ninterpolation_alphas:\n"
+        + "".join(f"- {a}\n" for a in alphas)
+        + "alpha_attenuation: 0.7\ninitial_noise_eps: 4.0\ngaussian_blur_input: false\n")
+    loaded = factory.load_defense(str(tmp_path / f"ours_linear_noise_{family}.yaml"),
+                                  eot_steps=2, device="cpu")
+    assert loaded.defense.remat is True and loaded.defense.normalize_before_purify
+    built.alphas.copy_(torch.tensor(alphas.astype(np.float32) * np.float32(0.7)))
+    size = loaded.image_size
+    x = torch.tensor(np.random.RandomState(4).rand(1, size, size, 3).astype(np.float32))
+    rng = np.random.RandomState(6)
+    draws = [torch.tensor(rng.standard_normal(s).astype(np.float32))
+             for s in [(2, size, size, 3), (8, 2, 512)]]
+    with torch.no_grad():
+        want = eot_wrap(built, 2)(x, list(draws))
+        got = loaded.net(x, list(draws))
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -4,10 +4,12 @@ input gradients of a small gender defense and of a small ids defense are
 the same with remat on and off, with draws from a torch.Generator (so the
 recompute must replay the draws of the forward it replaces) and with the
 class cotangents in chunks (a recompute per chunk); the route that shares
-one encode across the EoT draws as well. Also: the only policy ported is
-None, and the factories' defaults are the JAX factory's. Port only: the
-JAX remat is held against the plain defense by the JAX package's own
-tests."""
+one encode across the EoT draws as well. The remat policies
+(`dots_saveable`, `dots_with_no_batch_dims_saveable`: selective activation
+checkpointing) give the same gradients as None, and one backward per
+forward is all torch allows them. Also: other policy names raise, and the
+factories' defaults are the JAX factory's. Port only: the JAX remat is held
+against the plain defense by the JAX package's own tests."""
 
 import inspect
 
@@ -16,7 +18,7 @@ import torch
 
 from gen_adversarial_tpu_torch.attacks import class_grads
 from gen_adversarial_tpu_torch.cars import cars_defense
-from gen_adversarial_tpu_torch.defenses.base import MLVGMDefense
+from gen_adversarial_tpu_torch.defenses.base import REMAT_POLICIES, MLVGMDefense
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.flagship import flagship
 from gen_adversarial_tpu_torch.gender import gender_defense
@@ -58,8 +60,8 @@ def _defense(family, eps, gender):
     return defense, size
 
 
-def _grads(defense, size, remat, chunk):
-    defense.remat = remat
+def _grads(defense, size, remat, chunk, policy=None):
+    defense.remat, defense.remat_policy = remat, policy
     x = torch.rand(B, size, size, 3, generator=torch.Generator().manual_seed(0))
     net = eot_wrap(defense, EOT)
     logits, grads = class_grads(net, x, torch.Generator().manual_seed(1),
@@ -106,10 +108,46 @@ def test_remat_loss_gradient_equals_the_plain_one(gender, family, eps):
     assert _rel(grads[1], grads[0]) <= REMAT_RTOL
 
 
+@pytest.fixture(scope="module")
+def policy_none():
+    """(logits, class gradients) under remat with policy None, once per
+    (family, eps)."""
+    return {}
+
+
+@pytest.mark.parametrize("family,eps", [("gender", 4.0), ("ids", 2.0), ("ids", 0.0)])
+@pytest.mark.parametrize("policy", sorted(REMAT_POLICIES))
+def test_remat_policies_give_the_gradients_of_policy_none(gender, policy_none, family, eps,
+                                                          policy):
+    """All class gradients of EoT-4 in one batched backward (the attacks'
+    class_grads without a cotangent_chunk), and the logits, equal to remat
+    with policy None: a policy only chooses what is saved."""
+    defense, size = _defense(family, eps, gender)
+    if (family, eps) not in policy_none:
+        policy_none[family, eps] = _grads(defense, size, True, None)
+    want_logits, want = policy_none[family, eps]
+    got_logits, got = _grads(defense, size, True, None, policy)
+    defense.remat_policy = None
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    torch.testing.assert_close(got_logits, want_logits, rtol=0, atol=0)
+    assert _rel(got, want) <= REMAT_RTOL
+
+
+def test_a_policy_allows_one_backward_per_forward():
+    """class_grads in blocks runs a backward per block over one forward:
+    torch refuses a second backward through a policy's saved outputs."""
+    defense, size = _small_ids(2.0)
+    with pytest.raises(RuntimeError, match="backward an extra time"):
+        _grads(defense, size, True, 3, "dots_saveable")
+
+
 def test_only_the_save_nothing_policy_is_ported():
-    with pytest.raises(NotImplementedError, match="dots_saveable"):
+    """None and the policies of REMAT_POLICIES are ported; any other name
+    raises and lists them."""
+    assert sorted(REMAT_POLICIES) == ["dots_saveable", "dots_with_no_batch_dims_saveable"]
+    with pytest.raises(ValueError, match="dots_saveable.*dots_with_no_batch_dims_saveable"):
         MLVGMDefense(None, None, torch.zeros(1), None, None, None, remat=True,
-                     remat_policy="dots_saveable")
+                     remat_policy="nothing_saveable")
 
 
 def test_factories_turn_remat_on_for_the_stylegan_families():

@@ -175,3 +175,53 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+TINY_PLAN = (4, "M", 8, "M", 8, 8, "M", 8, 8, "M", 8, 8, "M")
+
+
+def tiny_world(tmp_path, n_per_class: int = 6):
+    """The synthetic world of tests/test_harness.py for the harness and the
+    CLI: two class folders of 64-px PNGs (dark 'a', bright 'b', written by
+    PIL) and the JAX `save_variables` checkpoint of a tiny VGG11-BN over 100
+    classes, random from a numpy seed, its last bias raised on classes 0
+    and 1, almost alike: the images are classified as 0 or 1, some right,
+    and DeepFool crosses the boundary between the two in a few steps.
+    Returns (images folder, checkpoint path)."""
+    import jax.numpy as jnp
+    from PIL import Image
+
+    from gen_adversarial_tpu.core.checkpoint import save_variables
+    from gen_adversarial_tpu.models.classifiers import VGG11BN
+
+    rng = np.random.RandomState(0)
+    data_dir = tmp_path / "images"
+    for cls in ("a", "b"):
+        (data_dir / cls).mkdir(parents=True)
+        base = 60 if cls == "a" else 190
+        for i in range(n_per_class):
+            arr = (rng.rand(64, 64, 3) * 40 + base).clip(0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(data_dir / cls / f"{i}.png")
+    model = VGG11BN(n_classes=100, plan=TINY_PLAN)
+    variables = jax.tree.map(np.asarray, random_variables(jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False)), 0))
+    bias = variables["params"]["classifier"]["fc1"]["bias"]
+    bias[0] += 3.0
+    bias[1] = bias[0] - 0.02
+    ckpt = tmp_path / "classifier.msgpack"
+    save_variables(ckpt, variables, {"model_type": "vgg"})
+    return data_dir, ckpt
+
+
+def patch_tiny_classifier(monkeypatch):
+    """Both factories build the tiny VGG of `tiny_world` in place of
+    VGG11-BN."""
+    import gen_adversarial_tpu.eval.factory as jax_factory
+    import gen_adversarial_tpu_torch.eval.factory as factory
+    from gen_adversarial_tpu.models.classifiers import VGG11BN as JaxVGG
+    from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+
+    monkeypatch.setattr(jax_factory, "make_classifier",
+                        lambda t, n: JaxVGG(n_classes=n, plan=TINY_PLAN))
+    monkeypatch.setattr(factory, "make_classifier",
+                        lambda t, n, device: VGG11BN(n, plan=TINY_PLAN, device=device))
