@@ -53,7 +53,14 @@ class folders; `eval/factory.load_defense` (its logits held against the
 built defense's on the same draws) and `eval/harness.run_benchmark` under
 DeepFool and C&W at short budgets, with plots, checked as results.json (each
 attack moves an image classified right to a finite minimal L2) and PNG
-files. Every phase prints one JSON line with its elapsed seconds;
+files. Then `alpha_search` runs cli/alpha_search.py's main() on the same
+files: make-adv (FGSM at L2 2.0 through EoT-32 over the 6 PNGs; at least
+one adversary kept, each a 64 x 64 PNG under its source's name within the
+bound of it) and bo (the 5 seed schedules and 2 GP steps on the kept set;
+alphas.npy and accuracies.npy checked), then an AlphaEvaluator on the
+harness's loaded flagship draws the same at one position twice and after
+fast_forward, and the GP's fit and acquisition on the card agree with the
+CPU's. Every phase prints one JSON line with its elapsed seconds;
 the second-to-last line summarises the kernels (K1 and K2, each in float32
 and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -140,6 +147,17 @@ HARNESS_IMAGES = 6
 HARNESS_CW_STEPS = 4
 HARNESS_MARGIN_SIGMAS = 2.0
 HARNESS_SEED = 42  # run_benchmark's seed: its draws are computed here too
+# phase `alpha_search`: make-adv over the harness's 6 PNGs and the evaluator
+# at batch 4, bo with 2 GP steps after its 5 seed schedules; the GP on the
+# card against the CPU at 12 points of the search's 24 alphas, each call on
+# the same inputs: 200 (fit) or 60 (acquisition) float32 Adam steps,
+# cuSOLVER's Cholesky against LAPACK's (on an H100 the fit's hyperparameters
+# came 3.7e-4 apart, and acquisitions on two fits that far apart gave
+# candidates 5.9e-3 apart, so the acquisition takes one fit's on both)
+ALPHA_ADV_BATCH = 4
+ALPHA_BO_STEPS = 2
+ALPHA_GP_POINTS = 12
+ALPHA_GP_TOL = 1e-3
 # the gender CE gradient under a remat_policy against policy None (phase
 # attack_remat): the same function, but cuDNN may run other algorithms,
 # and with random weights this gradient agrees only to ~1e-3 between them in
@@ -482,12 +500,12 @@ def main() -> int:
     gender = run_phase("gender", gender_phase)
     torch.cuda.empty_cache()  # the gender weights went with its phase
 
-    def small_gender():
+    def small_gender(b=2, eot=4):
         """A small gender defense (32-px generator, full-width encoder, one
         ResNet block per stage) on the CPU and a deep copy of it on the GPU,
-        with EoT-4 draws and 64-px images from a numpy seed."""
+        with EoT draws and b 64-px images from a numpy seed."""
         import numpy as np
-        size, eot, b, image, n_codes = 32, 4, 2, 64, 8
+        size, image, n_codes = 32, 64, 8
         # remat off: phase `grad` differentiates it with torch.func, which
         # refuses torch.utils.checkpoint
         kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1), remat=False)
@@ -653,13 +671,17 @@ def main() -> int:
         # algorithms here and the check reads the same number every run
         def against_float64(name, cpu, gpu, x, draws, eot):
             before = k2.launches
+            t = time.monotonic()
             want = class_grads(eot_wrap(cpu, eot), x, draws)
+            cpu_s = time.monotonic() - t
             with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                             deterministic=True, allow_tf32=False):
                 got = class_grads(eot_wrap(gpu, eot), x.to(dev), draws).cpu()
             launched = k2.launches - before
+            t = time.monotonic()
             want64 = class_grads(eot_wrap(cpu.double(), eot), x.double(),
                                  [d.double() for d in draws])
+            cpu_s = {"float32": cpu_s, "float64": time.monotonic() - t}
             gap = rel_err(want, want64)
             tol = max(PARITY_RTOL, GRAD_GAP_FACTOR * gap)
             err = rel_err(got, want64)
@@ -668,9 +690,12 @@ def main() -> int:
                                    f"> {GRAD_GAP_FACTOR} x the CPU float32 one's {gap}")
             out[name] = {"classes": want.shape[0], "eot_steps": eot, "batch": x.shape[0],
                          "gpu_f32_vs_cpu_f64": err, "cpu_f32_vs_cpu_f64": gap, "tol": tol,
-                         "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": launched}
+                         "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": launched,
+                         "cpu_s": cpu_s}
 
-        cpu, gpu, x, draws, eot, _ = small_gender()
+        # one image at EoT-2: the CPU's float32 and float64 references are
+        # most of the phase, and the host's share of it varies most
+        cpu, gpu, x, draws, eot, _ = small_gender(1, 2)
         against_float64("gender", cpu, gpu, x, draws, eot)
         # the small cars defense, the same way, at eps 0 (the shared encode:
         # the CPU's float64 encoder runs once per image at 192 x 256)
@@ -1319,13 +1344,21 @@ def main() -> int:
     attack16 = run_phase("attack_bf16", attack_bf16_phase)
     torch.cuda.empty_cache()
 
+    import tempfile
+    from pathlib import Path
+
+    # phases harness and alpha_search share one directory: the flagship's
+    # checkpoints (2.75 GB, written once), the config copy and the 6 PNGs
+    root = Path(__file__).resolve().parent
+    (root / ".scratch").mkdir(exist_ok=True)  # gitignored
+    scratch = tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch")
+    shared = {}  # what the harness phase leaves to the alpha_search phase
+
     def harness_phase():
         # the evaluation entry points on the float32 flagship, from files
         import dataclasses
         import re
-        import tempfile
         from functools import partial
-        from pathlib import Path
 
         import numpy as np
         from gen_adversarial_tpu_torch.core.checkpoint import load_variables, save_variables
@@ -1336,177 +1369,338 @@ def main() -> int:
         from gen_adversarial_tpu_torch.eval.harness import (
             ATTACK_JSON_NAMES, TITLE_STRIP, batch_generator, run_benchmark)
 
-        root = Path(__file__).resolve().parent
-        (root / ".scratch").mkdir(exist_ok=True)  # gitignored
         out = {"nvidia_smi": device_info["nvidia_smi"], "batch": HARNESS_BATCH,
                "images": HARNESS_IMAGES, "eot_steps": EOT_STEPS}
-        with tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch") as tmp:
-            tmp = Path(tmp)
-            built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
-            # the config's alphas are rounded to two decimals: the built
-            # defense takes them, so the loaded one computes the same logits
-            cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
-            built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
-                                               * np.float32(cfg.alpha_attenuation)))
-            # 6 images in two class folders, 'a' (label 0: images 0-2, all in
-            # the first batch) and 'b' (label 1). Random weights put every
-            # image on one class by ~0.29 and move a logit by ~1e-3 from draw
-            # to draw, so no image would be classified right: the head's
-            # class-0 bias is raised until image 0 wins class 0 under the
-            # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
-            # margin over 8 draws (the harness's 4 stages of batch 0 and 4
-            # more). Images 1-2 then fall either side of the boundary.
-            rng = np.random.RandomState(0)
-            pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
-            for i, image in enumerate(pixels):
-                png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
-                          / f"{i}.png", image)
-            first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
-            net = eot_wrap(built, EOT_STEPS)
+        tmp = Path(scratch.name)
+        built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+        # the config's alphas are rounded to two decimals: the built
+        # defense takes them, so the loaded one computes the same logits
+        cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
+        built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
+                                           * np.float32(cfg.alpha_attenuation)))
+        # 6 images in two class folders, 'a' (label 0: images 0-2, all in
+        # the first batch) and 'b' (label 1). Random weights put every
+        # image on one class by ~0.29 and move a logit by ~1e-3 from draw
+        # to draw, so no image would be classified right: the head's
+        # class-0 bias is raised until image 0 wins class 0 under the
+        # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
+        # margin over 8 draws (the harness's 4 stages of batch 0 and 4
+        # more). Images 1-2 then fall either side of the boundary.
+        rng = np.random.RandomState(0)
+        pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
+        for i, image in enumerate(pixels):
+            png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
+                      / f"{i}.png", image)
+        first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
+        net = eot_wrap(built, EOT_STEPS)
 
-            def margin_lost(logits):  # best other class minus class 0
-                return logits[:, 1:].max(1).values - logits[:, 0]
+        def margin_lost(logits):  # best other class minus class 0
+            return logits[:, 1:].max(1).values - logits[:, 0]
 
-            with torch.no_grad():
-                draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
-                draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
-                lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
-                sigma = lost.std().item()
-                built.classifier.classifier.fc1.bias[0] += \
-                    lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
-                clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
-            out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
-            # the 'a' images the harness's clean predictions get right
-            right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
-            if 0 not in right:
-                raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
-            del net, first
-            torch.cuda.synchronize()
-            t = time.monotonic()
-            save_variables(tmp / "nvae.msgpack", to_jax_variables(built.purifier),
-                           {"config": dataclasses.asdict(FLAGSHIP_NVAE)})
-            save_variables(tmp / "vgg.msgpack", to_jax_variables(built.classifier),
-                           {"model_type": "vgg"})
-            out["checkpoint_write_s"] = time.monotonic() - t
-            out["checkpoint_gb"] = sum((tmp / f).stat().st_size
-                                       for f in ("nvae.msgpack", "vgg.msgpack")) / 1e9
-            # read: every array of both files to the device
-            t = time.monotonic()
-            n_bytes = 0
-            for f in ("nvae.msgpack", "vgg.msgpack"):
-                leaves = [load_variables(tmp / f)[0]]
-                while leaves:
-                    leaf = leaves.pop()
-                    if isinstance(leaf, dict):
-                        leaves.extend(leaf.values())
-                    else:
-                        n_bytes += torch.from_numpy(leaf).to(dev).numel() * leaf.itemsize
-            torch.cuda.synchronize()
-            out["checkpoint_read_s"] = time.monotonic() - t
-            out["checkpoint_read_gb"] = n_bytes / 1e9
+        with torch.no_grad():
+            draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
+            draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
+            lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
+            sigma = lost.std().item()
+            built.classifier.classifier.fc1.bias[0] += \
+                lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
+            clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
+        out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
+        # the 'a' images the harness's clean predictions get right
+        right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
+        if 0 not in right:
+            raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
+        del net, first
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        save_variables(tmp / "nvae.msgpack", to_jax_variables(built.purifier),
+                       {"config": dataclasses.asdict(FLAGSHIP_NVAE)})
+        save_variables(tmp / "vgg.msgpack", to_jax_variables(built.classifier),
+                       {"model_type": "vgg"})
+        out["checkpoint_write_s"] = time.monotonic() - t
+        out["checkpoint_gb"] = sum((tmp / f).stat().st_size
+                                   for f in ("nvae.msgpack", "vgg.msgpack")) / 1e9
+        # read: every array of both files to the device
+        t = time.monotonic()
+        n_bytes = 0
+        for f in ("nvae.msgpack", "vgg.msgpack"):
+            leaves = [load_variables(tmp / f)[0]]
+            while leaves:
+                leaf = leaves.pop()
+                if isinstance(leaf, dict):
+                    leaves.extend(leaf.values())
+                else:
+                    n_bytes += torch.from_numpy(leaf).to(dev).numel() * leaf.itemsize
+        torch.cuda.synchronize()
+        out["checkpoint_read_s"] = time.monotonic() - t
+        out["checkpoint_read_gb"] = n_bytes / 1e9
 
-            text = (root / "configs" / "ours_linear_noise_ids.yaml").read_text()
-            text = re.sub(r"^classifier_path: .*$", f"classifier_path: {tmp / 'vgg.msgpack'}",
-                          text, flags=re.M)
-            text = re.sub(r"^autoencoder_path: .*$", f"autoencoder_path: {tmp / 'nvae.msgpack'}",
-                          text, flags=re.M)
-            config = tmp / "ours_linear_noise_ids.yaml"
-            config.write_text(text)
+        text = (root / "configs" / "ours_linear_noise_ids.yaml").read_text()
+        text = re.sub(r"^classifier_path: .*$", f"classifier_path: {tmp / 'vgg.msgpack'}",
+                      text, flags=re.M)
+        text = re.sub(r"^autoencoder_path: .*$", f"autoencoder_path: {tmp / 'nvae.msgpack'}",
+                      text, flags=re.M)
+        config = tmp / "ours_linear_noise_ids.yaml"
+        config.write_text(text)
 
-            t = time.monotonic()
-            loaded = load_defense(str(config))
-            torch.cuda.synchronize()
-            out["load_defense_s"] = time.monotonic() - t
-            images = torch.rand(BATCH, 64, 64, 3, device=dev, generator=gen)
-            with torch.no_grad():
-                want = eot_wrap(built, EOT_STEPS)(images, torch.Generator(device=dev).manual_seed(13))
-                got = loaded.net(images, torch.Generator(device=dev).manual_seed(13))
-            err = (got - want).abs().max().item()
-            tol = PARITY_RTOL * max(1.0, want.abs().max().item())
-            if not math.isfinite(err) or err > tol:
-                raise RuntimeError(f"the loaded flagship's logits differ from the built one's: "
-                                   f"{err} > {tol}")
-            out["loaded_vs_built"] = {"max_abs_err": err, "tol": tol}
-            del built, want, got
-            torch.cuda.empty_cache()
+        t = time.monotonic()
+        loaded = load_defense(str(config))
+        torch.cuda.synchronize()
+        out["load_defense_s"] = time.monotonic() - t
+        images = torch.rand(BATCH, 64, 64, 3, device=dev, generator=gen)
+        with torch.no_grad():
+            want = eot_wrap(built, EOT_STEPS)(images, torch.Generator(device=dev).manual_seed(13))
+            got = loaded.net(images, torch.Generator(device=dev).manual_seed(13))
+        err = (got - want).abs().max().item()
+        tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+        if not math.isfinite(err) or err > tol:
+            raise RuntimeError(f"the loaded flagship's logits differ from the built one's: "
+                               f"{err} > {tol}")
+        out["loaded_vs_built"] = {"max_abs_err": err, "tol": tol}
+        del built, want, got
+        torch.cuda.empty_cache()
 
-            seconds = {"deepfool": [], "c&w": []}
+        seconds = {"deepfool": [], "c&w": []}
 
-            def timed_attack(name, attack):
-                def run_attack(*args):
-                    torch.cuda.synchronize()
-                    t = time.monotonic()
-                    res = attack(*args)
-                    torch.cuda.synchronize()
-                    seconds[name].append(time.monotonic() - t)
-                    return res
-                return run_attack
+        def timed_attack(name, attack):
+            def run_attack(*args):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                res = attack(*args)
+                torch.cuda.synchronize()
+                seconds[name].append(time.monotonic() - t)
+                return res
+            return run_attack
 
-            s = ATTACK_SUITES["ids"]
-            loaded.attacks["deepfool"] = timed_attack("deepfool", partial(
-                attacks.deepfool_attack, num_classes=s.deepfool_num_classes,
-                overshoot=s.deepfool_overshoot, max_iter=ATTACK_DF_ITERS,
-                cotangent_chunk=ATTACK_COT_CHUNK))
-            loaded.attacks["c&w"] = timed_attack("c&w", partial(
-                attacks.cw_attack, c=s.cw_c, kappa=s.cw_kappa, steps=HARNESS_CW_STEPS,
-                lr=s.cw_lr, n_restarts=1, early_stopping_steps=s.cw_early_stopping_steps))
-            results_dir, logs = tmp / "results", []
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()  # counts from here on are this path's
-            t = time.monotonic()
-            for name in ("deepfool", "c&w"):
-                results = run_benchmark(loaded, str(tmp / "images"), str(results_dir),
-                                        batch_size=HARNESS_BATCH, seed=HARNESS_SEED,
-                                        attack_filter=name, log_fn=logs.append)
-            out["run_benchmark_s"] = time.monotonic() - t
-            out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
-            out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
-            if k1.launches == 0:
-                raise RuntimeError("the harness did not go through K1")
-            written = json.loads((results_dir / "results.json").read_text())
-            keys = [ATTACK_JSON_NAMES["deepfool"], ATTACK_JSON_NAMES["c&w"]]
-            if written != results or sorted(written) != sorted(["Clean", *keys]):
-                raise RuntimeError(f"results.json has keys {sorted(written)}")
-            # the clean accuracy is the clean draw's; no class-1 logit comes
-            # near the top, so DeepFool finds the 'b' images misclassified
-            # already and reports 0; each attack moves an 'a' image that the
-            # clean predictions got right to a finite minimal L2 (100.0 marks
-            # no adversary; an 'a' image can also start misclassified under
-            # the attack's own draws)
-            if written["Clean"] != len(right) / HARNESS_IMAGES:
-                raise RuntimeError(f"clean accuracy {written['Clean']}, but images {right} of "
-                                   f"{HARNESS_IMAGES} are classified right")
-            beaten = {}
-            for key in keys:
-                values = written[key]
-                beaten[key] = [i for i in right if 0.0 < values[i] < 100.0]
-                if len(values) != HARNESS_IMAGES or not all(
-                        math.isfinite(v) and 0.0 <= v <= 100.0 for v in values) \
-                        or not beaten[key] or (key == ATTACK_JSON_NAMES["deepfool"] and any(
-                            values[HARNESS_IMAGES // 2:])):
-                    raise RuntimeError(f"results.json {key}: {values} (images {right} "
-                                       "classified right)")
-            plots = {}
-            for name in ("deepfool", "c&w"):
-                for i in (0, 5):
-                    pixels = png.read_rgb(results_dir / "plots" / f"{name}_example={i}.png")
-                    title = pixels[:TITLE_STRIP]
-                    if pixels.shape != (TITLE_STRIP + 64 + 12, 3 * (64 + 12), 3) \
-                            or title.max() == 0:
-                        raise RuntimeError(f"plot {name} {i}: shape {pixels.shape}, title "
-                                           f"drawn {bool(title.max())}")
-                    plots[f"{name}_example={i}"] = list(pixels.shape)
-            import importlib.util
-            out.update(results=written, classified_right=right, beaten=beaten, plots=plots,
-                       attack_s_per_batch=seconds,
-                       title_font="PIL ImageDraw" if importlib.util.find_spec("PIL")
-                       else "bitmap",
-                       progress_left=(results_dir / "progress_p0.json").exists(), log=logs)
-            if out["progress_left"]:
-                raise RuntimeError("the harness left its progress file")
+        s = ATTACK_SUITES["ids"]
+        loaded.attacks["deepfool"] = timed_attack("deepfool", partial(
+            attacks.deepfool_attack, num_classes=s.deepfool_num_classes,
+            overshoot=s.deepfool_overshoot, max_iter=ATTACK_DF_ITERS,
+            cotangent_chunk=ATTACK_COT_CHUNK))
+        loaded.attacks["c&w"] = timed_attack("c&w", partial(
+            attacks.cw_attack, c=s.cw_c, kappa=s.cw_kappa, steps=HARNESS_CW_STEPS,
+            lr=s.cw_lr, n_restarts=1, early_stopping_steps=s.cw_early_stopping_steps))
+        results_dir, logs = tmp / "results", []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # counts from here on are this path's
+        t = time.monotonic()
+        for name in ("deepfool", "c&w"):
+            results = run_benchmark(loaded, str(tmp / "images"), str(results_dir),
+                                    batch_size=HARNESS_BATCH, seed=HARNESS_SEED,
+                                    attack_filter=name, log_fn=logs.append)
+        out["run_benchmark_s"] = time.monotonic() - t
+        out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        if k1.launches == 0:
+            raise RuntimeError("the harness did not go through K1")
+        written = json.loads((results_dir / "results.json").read_text())
+        keys = [ATTACK_JSON_NAMES["deepfool"], ATTACK_JSON_NAMES["c&w"]]
+        if written != results or sorted(written) != sorted(["Clean", *keys]):
+            raise RuntimeError(f"results.json has keys {sorted(written)}")
+        # the clean accuracy is the clean draw's; no class-1 logit comes
+        # near the top, so DeepFool finds the 'b' images misclassified
+        # already and reports 0; each attack moves an 'a' image that the
+        # clean predictions got right to a finite minimal L2 (100.0 marks
+        # no adversary; an 'a' image can also start misclassified under
+        # the attack's own draws)
+        if written["Clean"] != len(right) / HARNESS_IMAGES:
+            raise RuntimeError(f"clean accuracy {written['Clean']}, but images {right} of "
+                               f"{HARNESS_IMAGES} are classified right")
+        beaten = {}
+        for key in keys:
+            values = written[key]
+            beaten[key] = [i for i in right if 0.0 < values[i] < 100.0]
+            if len(values) != HARNESS_IMAGES or not all(
+                    math.isfinite(v) and 0.0 <= v <= 100.0 for v in values) \
+                    or not beaten[key] or (key == ATTACK_JSON_NAMES["deepfool"] and any(
+                        values[HARNESS_IMAGES // 2:])):
+                raise RuntimeError(f"results.json {key}: {values} (images {right} "
+                                   "classified right)")
+        plots = {}
+        for name in ("deepfool", "c&w"):
+            for i in (0, 5):
+                pixels = png.read_rgb(results_dir / "plots" / f"{name}_example={i}.png")
+                title = pixels[:TITLE_STRIP]
+                if pixels.shape != (TITLE_STRIP + 64 + 12, 3 * (64 + 12), 3) \
+                        or title.max() == 0:
+                    raise RuntimeError(f"plot {name} {i}: shape {pixels.shape}, title "
+                                       f"drawn {bool(title.max())}")
+                plots[f"{name}_example={i}"] = list(pixels.shape)
+        import importlib.util
+        out.update(results=written, classified_right=right, beaten=beaten, plots=plots,
+                   attack_s_per_batch=seconds,
+                   title_font="PIL ImageDraw" if importlib.util.find_spec("PIL")
+                   else "bitmap",
+                   progress_left=(results_dir / "progress_p0.json").exists(), log=logs)
+        if out["progress_left"]:
+            raise RuntimeError("the harness left its progress file")
+        shared.update(config=config, loaded=loaded, images=tmp / "images")
         return out
 
-    harness = run_phase("harness", harness_phase)
+    def alpha_search_phase():
+        # the alpha search (cli/alpha_search.py) on the harness's flagship
+        # files: make-adv over its 6 PNGs, bo on the kept adversaries, and
+        # in process the evaluator's positions and the GP on the card vs the
+        # CPU
+        import numpy as np
+        from gen_adversarial_tpu_torch.cli import alpha_search
+        from gen_adversarial_tpu_torch.data import png
+        from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset
+        from gen_adversarial_tpu_torch.eval import factory
+        from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
+        from gen_adversarial_tpu_torch.search import alphas, gp, grid
+
+        tmp = Path(scratch.name)
+        config, images_path = str(shared["config"]), shared["images"]
+        out = {"nvidia_smi": device_info["nvidia_smi"], "eot_steps": EOT_STEPS}
+        # host seconds of the calls the CLI makes, each ended by a synchronize
+        seconds = {"load": [], "fgsm_batch": [], "evaluation": [], "fit_gp": [],
+                   "optimize_acqf": []}
+        patched = [(factory, "load_defense", "load"), (factory, "load_ours_for_search", "load"),
+                   (grid, "fgsm_attack", "fgsm_batch"),
+                   (alphas.AlphaEvaluator, "predictions", "evaluation"),
+                   (gp, "fit_gp", "fit_gp"), (gp, "optimize_acqf", "optimize_acqf")]
+        real = {}
+
+        def timed(fn, bucket):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                seconds[bucket].append(time.monotonic() - t)
+                return result
+            return call
+
+        for owner, name, bucket in patched:
+            real[owner, name] = getattr(owner, name)
+            setattr(owner, name, timed(real[owner, name], bucket))
+        reset_counts()  # counts from here on are this path's
+        try:
+            adv_dir = tmp / "adv"
+            t = time.monotonic()
+            kept = alpha_search.main([
+                "--mode", "make-adv", "--config", config, "--images-path", str(images_path),
+                "--out-dir", str(adv_dir), "--n-samples", str(HARNESS_IMAGES),
+                "--eot-steps", str(EOT_STEPS), "--batch-size", str(ALPHA_ADV_BATCH)])
+            out["make_adv_s"] = time.monotonic() - t
+            out["make_adv_k1_launches"] = k1.launches
+            files = sorted(adv_dir.rglob("*.png"))
+            kept_names = [f.relative_to(adv_dir).as_posix() for f in files]
+            out["kept"] = kept_names
+            if kept < 1 or kept != len(files):
+                raise RuntimeError(f"make-adv kept {kept} adversaries ({kept_names}): FGSM at "
+                                   f"L2 {alpha_search.FGSM_BOUND['ids']} moved no image "
+                                   "classified right")
+            limit = alpha_search.FGSM_BOUND["ids"] + math.sqrt(64 * 64 * 3) / 255
+            distances = {}
+            for f, name in zip(files, kept_names):
+                source = images_path / name
+                adv = png.read_rgb(f)
+                if adv.shape != (64, 64, 3) or not source.exists():
+                    raise RuntimeError(f"kept {name}: shape {adv.shape}, source there "
+                                       f"{source.exists()}")
+                distances[name] = float(np.sqrt(np.sum(
+                    (adv / 255.0 - png.read_rgb(source) / 255.0) ** 2)))
+                if not distances[name] <= limit:
+                    raise RuntimeError(f"kept {name} lies at L2 {distances[name]} > {limit} "
+                                       "from its source")
+            out["l2_from_source"] = distances
+
+            bo_dir = tmp / "bo"
+            t = time.monotonic()
+            before = k1.launches
+            xs, accs = alpha_search.main([
+                "--mode", "bo", "--config", config, "--adv-images-path", str(adv_dir),
+                "--n-steps", str(ALPHA_BO_STEPS), "--eot-steps", str(EOT_STEPS),
+                "--batch-size", str(ALPHA_ADV_BATCH), "--results-folder", str(bo_dir)])
+            out["bo_s"] = time.monotonic() - t
+            out["bo_k1_launches"] = k1.launches - before
+            saved_x, saved_acc = np.load(bo_dir / "alphas.npy"), np.load(bo_dir / "accuracies.npy")
+            rows = 5 + ALPHA_BO_STEPS
+            if saved_x.shape != (rows, 24) or not np.all((saved_x >= 0) & (saved_x <= 1)) \
+                    or saved_acc.shape != (rows, 1) \
+                    or not np.allclose(saved_acc * kept, np.round(saved_acc * kept)) \
+                    or (bo_dir / "bo_progress.json").exists():
+                raise RuntimeError(f"bo: alphas {saved_x.shape}, accuracies "
+                                   f"{saved_acc[:, 0].tolist()} of {kept} images, progress "
+                                   f"left {(bo_dir / 'bo_progress.json').exists()}")
+            out["bo_accuracies"] = saved_acc[:, 0].tolist()
+        finally:
+            for owner, name, _ in patched:
+                setattr(owner, name, real[owner, name])
+        out["call_seconds"] = seconds
+
+        # the evaluator on the harness's loaded flagship over its 6 PNGs:
+        # one position twice, and a resumed evaluator after fast_forward
+        before = k1.launches
+        ds = ImageLabelDataset(str(images_path), 64)
+        images = np.stack([ds.load_image(i) for i in range(len(ds))])
+        schedule = alphas.get_cosine_alphas(24)
+        kw = dict(attenuation=alphas.ALPHA_ATTENUATION["ids"], eot_steps=EOT_STEPS,
+                  batch_size=ALPHA_ADV_BATCH)
+        t = time.monotonic()
+        evaluator = alphas.AlphaEvaluator(shared["loaded"].defense, images, ds.labels, **kw)
+        first = evaluator.predictions(schedule)
+        evaluator.fast_forward(0)
+        again = evaluator.predictions(schedule)
+        second = evaluator.predictions(schedule)
+        resumed = alphas.AlphaEvaluator(shared["loaded"].defense, images, ds.labels, **kw)
+        resumed.fast_forward(1)
+        second_resumed = resumed.predictions(schedule)
+        evaluations_s = time.monotonic() - t  # 4 evaluations, predictions on the host
+        if not (np.array_equal(first, again) and np.array_equal(second, second_resumed)):
+            raise RuntimeError(f"evaluator predictions at one position differ: "
+                               f"{first.tolist()} vs {again.tolist()}, {second.tolist()} vs "
+                               f"{second_resumed.tolist()}")
+        out["evaluator"] = {"position_0": first.tolist(), "position_1": second.tolist(),
+                            "labels": ds.labels.tolist(), "seconds": evaluations_s,
+                            "k1_launches": k1.launches - before}
+
+        # the GP at the search's width on the card and on the CPU, each call
+        # on the same inputs: the fit on the same points, the acquisition on
+        # the CPU fit's hyperparameters and the same raw samples (a CPU
+        # generator either way)
+        rng = np.random.RandomState(0)
+        x = rng.rand(ALPHA_GP_POINTS, 24).astype(np.float32)
+        y = np.sum((x - 0.45) ** 2, 1).astype(np.float32)
+        params, proposals = {}, {}
+        for where in ("cpu", "cuda"):
+            tx, ty = torch.tensor(x, device=where), torch.tensor(y, device=where)
+            t = time.monotonic()
+            params[where] = {k: v.cpu() for k, v in gp.fit_gp(tx, ty).items()}
+            torch.cuda.synchronize()
+            fit_s = time.monotonic() - t
+            t = time.monotonic()
+            cand, ei = gp.optimize_acqf(
+                position_generator("cpu", 0, 0),
+                {k: v.to(where) for k, v in params["cpu"].items()}, tx, ty, float(y.min()),
+                (torch.zeros(24, device=where), torch.ones(24, device=where)))
+            proposals[where] = (cand.cpu(), ei.item())
+            out[f"gp_{where}_s"] = {"fit_gp": fit_s, "optimize_acqf": time.monotonic() - t}
+        param_err = max(((params["cuda"][k] - params["cpu"][k]).abs().max()
+                         / params["cpu"][k].abs().max().clamp(min=1e-6)).item()
+                        for k in params["cpu"])
+        (want_c, want_ei), (got_c, got_ei) = proposals["cpu"], proposals["cuda"]
+        cand_err = (got_c - want_c).abs().max().item()
+        ei_err = abs(got_ei - want_ei) / max(abs(want_ei), 1e-12)
+        out["gp"] = {"points": ALPHA_GP_POINTS, "param_rel_err": param_err,
+                     "candidate_abs_err": cand_err, "ei_rel_err": ei_err, "ei": want_ei,
+                     "tol": ALPHA_GP_TOL}
+        if not all(math.isfinite(e) and e <= ALPHA_GP_TOL
+                   for e in (param_err, cand_err, ei_err)):
+            raise RuntimeError(f"the GP on the card differs from the CPU's: {out['gp']}")
+        out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+        if k1.launches == 0:
+            raise RuntimeError("the alpha search did not go through K1")
+        return out
+
+    try:
+        harness = run_phase("harness", harness_phase)
+        alpha = run_phase("alpha_search", alpha_search_phase)
+    finally:
+        shared.clear()
+        scratch.cleanup()
 
     def mean_call_s(phase):
         return sum(phase["call_s"][1:]) / TIMED_CALLS
@@ -1570,7 +1764,8 @@ def main() -> int:
               # launches in the attack phases (forwards, and recomputes under remat)
               attack_launches={"attacks_parity": attack_parity["k1_launches"],
                                "attack_flagship": attack_flag["k1_launches"],
-                               "harness": harness["k1_launches"]}),
+                               "harness": harness["k1_launches"],
+                               "alpha_search": alpha["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
         # `max_abs_err` cover both paths, and `cars` holds the cars path's
         entry("upfirdn_blur", "float32", k2.SOURCE,

@@ -3,11 +3,14 @@ batched: every tensor carries the batch as its first dim."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.func import vmap
+
+from gen_adversarial_tpu_torch.defenses.base import several_backwards
 
 
 def class_grads(net, x: torch.Tensor, draws, class_idx: torch.Tensor | None = None,
@@ -30,9 +33,16 @@ def class_grads(net, x: torch.Tensor, draws, class_idx: torch.Tensor | None = No
     are dropped, so every block has one shape), the graph kept between
     blocks: the backward's live memory falls by K / chunk; under remat every
     block recomputes the purifier. The results equal the unchunked ones.
+    The forward then runs under `defenses.base.several_backwards()`, so a
+    remat_policy gives way to plain recompute there (a policy's saved
+    outputs serve one backward); the chunk is known to be below K before the
+    forward only where class_idx gives K, so with class_idx None any
+    cotangent_chunk counts.
     Returns logits (B, C) and grads (K, B, ...) (K = C when None)."""
     x = x.detach().requires_grad_(True)
-    with torch.enable_grad():
+    blocked = cotangent_chunk is not None and (class_idx is None
+                                               or cotangent_chunk < class_idx.shape[1])
+    with torch.enable_grad(), several_backwards() if blocked else contextlib.nullcontext():
         logits = net(x, draws)
     b, n_classes = logits.shape
     if class_idx is None:

@@ -90,15 +90,21 @@ class ImageNameLabelDataset(ImageLabelDataset):
 
 
 def iterate_batches(dataset: ImageLabelDataset, batch_size: int,
+                    shuffle: bool = False, seed: int = 0,
                     drop_last: bool = True, prefetch: int = 2,
                     shard: tuple[int, int] = (0, 1)):
     """Yield dict batches {'image': (B, H, W, C) float32, 'label': (B,) int32}
-    in file order, decoded by a background thread, `prefetch` batches ahead.
+    in file order, or with shuffle in the order
+    `np.random.RandomState(seed).shuffle` gives (the JAX package's), decoded
+    by a background thread, `prefetch` batches ahead.
 
-    shard = (pid, pcount): every pcount-th image from pid (round robin). A
-    decode error is raised in the consumer."""
+    shard = (pid, pcount): every pcount-th image of that order from pid
+    (round robin). A decode error is raised in the consumer."""
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
     pid, pcount = shard
-    order = np.arange(len(dataset))[pid::pcount]
+    order = order[pid::pcount]
     n_batches = len(order) // batch_size if drop_last else -(-len(order) // batch_size)
 
     q: queue.Queue = queue.Queue(maxsize=prefetch)

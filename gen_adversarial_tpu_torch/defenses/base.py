@@ -18,9 +18,12 @@ checkpoint's saved-tensor hooks: the attacks (attacks/utils.class_grads)
 take their gradients through torch.autograd. A `remat_policy` (the JAX
 `jax.checkpoint_policies` names of REMAT_POLICIES) saves the outputs of the
 matrix products it names and recomputes the rest (selective activation
-checkpointing). torch allows one backward per forward of such a region: a
-second one (class_grads with a cotangent_chunk below the class count)
-raises torch's "Trying to backward an extra time" RuntimeError. The kernels'
+checkpointing). torch allows one backward per forward of such a region,
+so a forward that is differentiated in blocks (class_grads with a
+cotangent_chunk, which runs it under `several_backwards()`) recomputes its
+region whole instead, as policy None does, and says so once in a warning;
+the gradients are the same, and the policy's memory meaning holds for every
+other forward. The kernels'
 ctypes launches inside their autograd Functions are no aten operations, so
 no policy saves them: they are recomputed, from the replayed draws.
 
@@ -35,7 +38,10 @@ the compute dtype.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+import warnings
 from collections.abc import Callable
 from functools import partial
 from typing import Any
@@ -58,6 +64,22 @@ REMAT_POLICIES = {
     "dots_saveable": ("convolution", "mm", "addmm", "bmm"),
     "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
 }
+
+
+# set while a forward runs that more than one backward will differentiate
+_SEVERAL_BACKWARDS = contextvars.ContextVar("several_backwards", default=False)
+
+
+@contextlib.contextmanager
+def several_backwards():
+    """Forwards run inside this context are differentiated by more than one
+    backward (attacks/utils.class_grads in blocks): a checkpointed region
+    made there runs without its remat_policy (see _remat_call)."""
+    token = _SEVERAL_BACKWARDS.set(True)
+    try:
+        yield
+    finally:
+        _SEVERAL_BACKWARDS.reset(token)
 
 
 def blur_kernel_size(h: int) -> int:
@@ -94,7 +116,11 @@ def _remat_call(fn: Callable, draws: Draws | None, *args, policy: str | None = N
     The draws of the first run are recorded and replayed, in order, by every
     recompute (one per backward pass), so each backward differentiates the
     forward that ran and not one with fresh noise. Nothing else in a
-    purifier is random, so the global RNG states are not stashed."""
+    purifier is random, so the global RNG states are not stashed.
+
+    Inside `several_backwards()` the policy is dropped, with a warning:
+    torch keeps a policy's saved outputs for one backward only, and plain
+    recompute serves any number of them, each replaying the recorded draws."""
     record: list[torch.Tensor] = []
     runs = 0
 
@@ -105,6 +131,12 @@ def _remat_call(fn: Callable, draws: Draws | None, *args, policy: str | None = N
             return fn(*a, None)
         return fn(*a, _RecordingDraws(draws, record) if runs == 1 else Draws(record))
 
+    if policy is not None and _SEVERAL_BACKWARDS.get():
+        warnings.warn(f"remat_policy {policy!r} dropped for a forward that is differentiated "
+                      "in blocks (a policy's saved outputs serve one backward): its purifier "
+                      "is recomputed whole in each block's backward, as under policy None",
+                      stacklevel=2)
+        policy = None
     context_fn = noop_context_fn
     if policy is not None:
         ops = [getattr(torch.ops.aten, op).default for op in REMAT_POLICIES[policy]]

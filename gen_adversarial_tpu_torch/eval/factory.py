@@ -121,6 +121,15 @@ def _ours_components(experiment: str, variables: dict, meta: dict, device: torch
     return model, make_trans_purify_split(model), True
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """torch.device(device); 'cuda' without CUDA raises, naming `who`."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device 'cuda' asked for, but CUDA is not available "
+                           "(pass device='cpu' to run on the CPU)")
+    return device
+
+
 def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = None,
                  remat: bool | None = None, remat_policy: str | None = None,
                  dtype: str | None = None, device="cuda") -> LoadedDefense:
@@ -132,20 +141,12 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
     attack gradients do not fit without it; a remat_policy turns it on.
     dtype 'bfloat16' casts the defense once (core/precision.defense_astype);
     the attacks' math stays float32. The environment's GAT_DF_COT_CHUNK sets
-    the attacks' cotangent_chunk; with a remat_policy it raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("load_defense: device 'cuda' asked for, but CUDA is not available "
-                           "(pass device='cpu' to run on the CPU)")
+    the attacks' cotangent_chunk; under a remat_policy the forwards that are
+    differentiated in blocks recompute their purifier whole (defenses/base.py)."""
+    device = resolve_device(device, "load_defense")
     if dtype is not None and dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: one of {sorted(DTYPES)}")
     cotangent_chunk = int(os.environ.get("GAT_DF_COT_CHUNK", "0")) or None
-    if remat_policy is not None and cotangent_chunk is not None:
-        # class gradients in blocks take a backward a block through one
-        # forward, which torch refuses under a selective-checkpoint policy
-        raise ValueError(f"remat_policy {remat_policy!r} with GAT_DF_COT_CHUNK="
-                         f"{cotangent_chunk}: a policy allows one backward per forward "
-                         "(ROADMAP Queue 1 item 1); unset one of the two")
     cfg = DefenseConfig.from_yaml(config_path)
     defense_type = defense_type_of(config_path)
     experiment = experiment_of(config_path)
@@ -190,3 +191,32 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
         defense = defense_astype(defense, DTYPES[dtype])
     return LoadedDefense(experiment, defense_type, image_size, n_classes, defense, eot_steps,
                          eot_chunk, attacks, dtype=dtype or "float32", device=device)
+
+
+def load_ours_for_search(config_path: str, device="cuda"):
+    """For the alpha search: the 'ours' defense's classifier and purifier
+    loaded once (as load_defense loads them), and (experiment, image_size,
+    make_defense). make_defense(alphas) returns an MLVGMDefense over those
+    modules with the given (already attenuated) alphas, initial noise eps
+    0.0, no blur and the family's normalize_before_purify; the search
+    (search/alphas.AlphaEvaluator) then writes its alphas buffer in place."""
+    device = resolve_device(device, "load_ours_for_search")
+    if defense_type_of(config_path) != "ours":
+        raise ValueError(f"{config_path}: the alpha search takes an ours_* config")
+    cfg = DefenseConfig.from_yaml(config_path)
+    experiment = experiment_of(config_path)
+    image_size = IMAGE_SIZE[experiment]
+    clf, clf_apply = load_classifier_parts(experiment, cfg.classifier_path, device)
+    variables, meta = load_variables(cfg.autoencoder_path)
+    purifier, (encode, decode), normalize = _ours_components(experiment, variables, meta,
+                                                             device)
+
+    def make_defense(alphas):
+        return MLVGMDefense(
+            purifier=purifier, classifier=clf,
+            alphas=torch.as_tensor(np.asarray(alphas, np.float32), device=device),
+            purify_encode=encode, purify_decode=decode, classifier_apply=clf_apply,
+            initial_noise_eps=0.0, normalize_before_purify=normalize, apply_blur=False,
+            image_size=image_size)
+
+    return experiment, image_size, make_defense

@@ -39,6 +39,7 @@ from gen_adversarial_tpu_torch.attacks import make_staged_autoattack
 from gen_adversarial_tpu_torch.data import png
 from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset, iterate_batches
 from gen_adversarial_tpu_torch.eval.factory import LoadedDefense
+from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
 
 KNOWN_ATTACKS = ("deepfool", "c&w", "autoattack")
 ATTACK_JSON_NAMES = {"deepfool": "DeepFool", "c&w": "C&W", "autoattack": "AutoAttack"}
@@ -137,8 +138,7 @@ def save_example_plot(path: Path, original: np.ndarray, adversarial: np.ndarray,
 def batch_generator(seed: int, pid: int, batch_index: int, stage: int,
                     device: torch.device) -> torch.Generator:
     """The generator of one stage of one batch (see the module docstring)."""
-    state = np.random.SeedSequence((seed, pid, batch_index, stage)).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+    return position_generator(device, seed, pid, batch_index, stage)
 
 
 def run_benchmark(loaded: LoadedDefense, images_path: str, results_folder: str,

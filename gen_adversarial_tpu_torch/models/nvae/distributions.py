@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from collections.abc import Iterable
 
+import numpy as np
 import torch
 
 
@@ -47,6 +48,14 @@ class Draws:
 
 def as_draws(source) -> Draws:
     return source if isinstance(source, Draws) else Draws(source)
+
+
+def position_generator(device, *position: int) -> torch.Generator:
+    """A generator on `device` seeded from np.random.SeedSequence(position):
+    the draws of a run's step depend on where it stands, not on what ran
+    before it (eval/harness.py's batches, search/alphas.py's evaluations)."""
+    state = np.random.SeedSequence(position).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 class Normal:

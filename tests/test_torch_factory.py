@@ -11,6 +11,7 @@ patched small) and compute what the builders' defenses compute. A-VAE and
 ND-VAE raise; bfloat16 casts; 'cuda' without CUDA raises."""
 
 import dataclasses
+from contextlib import nullcontext
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from gen_adversarial_tpu.core.checkpoint import save_variables as jax_save
 from gen_adversarial_tpu.models.classifiers import VGG11BN as JaxVGG
 from gen_adversarial_tpu.models.nvae.model import NVAE as JaxNVAE
 from gen_adversarial_tpu.models.nvae.model import NVAEConfig as JaxNVAEConfig
+from gen_adversarial_tpu_torch.attacks import class_grads
 from gen_adversarial_tpu_torch.cars import cars_defense
 from gen_adversarial_tpu_torch.core.checkpoint import save_variables
 from gen_adversarial_tpu_torch.core.convert import to_jax_variables
@@ -166,13 +168,37 @@ def test_ours_options_follow_the_jax_factory(world, tiny_classifier, monkeypatch
     assert loaded.defense.purifier.init_conv.weight.dtype == torch.bfloat16
 
 
-def test_a_remat_policy_with_a_cotangent_chunk_raises_before_loading(tmp_path, monkeypatch):
-    """Class gradients in blocks under a policy fail at their second
-    backward; load_defense refuses the pair before it reads any file."""
-    monkeypatch.setenv("GAT_DF_COT_CHUNK", "4")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 1"):
-        factory.load_defense(str(tmp_path / "ours_linear_noise_ids.yaml"),
-                             remat_policy="dots_saveable", device="cpu")
+def test_a_remat_policy_with_a_cotangent_chunk_raises_before_loading(world, tiny_classifier,
+                                                                    monkeypatch):
+    """A remat_policy with GAT_DF_COT_CHUNK set loads (nothing raises), and
+    its DeepFool (2 steps, 8 classes in blocks of 3, EoT-2), whose forwards
+    run without the policy, gives policy None's success, bounds, images and
+    step count exactly, and so do the class gradients of its first step:
+    the same recompute from the same draws. (At 2 steps both fail on this
+    random world, so the class gradients carry the comparison.)"""
+    config = str(world / "ours_linear_noise_ids.yaml")
+    monkeypatch.setenv("GAT_DF_COT_CHUNK", "3")
+    x = torch.tensor(_images(7))
+    results = {}
+    for policy in (None, "dots_saveable"):
+        loaded = factory.load_defense(config, eot_steps=EOT, remat=True, remat_policy=policy,
+                                      device="cpu")
+        if policy is None:  # the labels DeepFool's first draws predict: both images step
+            with torch.no_grad():
+                y = loaded.net(x, torch.Generator().manual_seed(9)).argmax(1)
+        deepfool = loaded.attacks["deepfool"]
+        assert deepfool.keywords["cotangent_chunk"] == 3
+        with pytest.warns(UserWarning, match="dropped") if policy else nullcontext():
+            results[policy] = deepfool(loaded.net, x, y, torch.Generator().manual_seed(9),
+                                       max_iter=2, return_iters=True)
+            order = torch.arange(8).expand(2, 8)
+            results[policy] += class_grads(loaded.net, x, torch.Generator().manual_seed(9),
+                                           order, cotangent_chunk=3)
+    want, got = results[None], results["dots_saveable"]
+    assert torch.isfinite(want[2]).all() and want[3] == got[3] == 2
+    assert want[5].abs().max() > 0
+    for g, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", ["competitor_avae_ids", "competitor_ndvae_ids"])
@@ -207,7 +233,10 @@ def test_stylegan_families_load_through_the_factory(tmp_path, monkeypatch, famil
     """The builder's small defense written by the port (to_jax_variables +
     save_variables), loaded by load_defense with the constructors patched
     small: remat on, and the same logits as the built defense on the same
-    draws (8 codes of the 32-px generator, so 8 alphas in the config)."""
+    draws (8 codes of the 32-px generator, so 8 alphas in the config). The
+    alpha search's load_ours_for_search reads the same files: its defense
+    (initial noise eps 0, no blur, the family's normalize) computes what the
+    built defense computes at eps 0 with the alphas it is given."""
     built, (name, purifier), classifier = _small_family(family)
     monkeypatch.setattr(factory, name, purifier)
     monkeypatch.setattr(factory, "make_classifier", classifier)
@@ -232,4 +261,18 @@ def test_stylegan_families_load_through_the_factory(tmp_path, monkeypatch, famil
         want = eot_wrap(built, 2)(x, list(draws))
         got = loaded.net(x, list(draws))
     assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    experiment, image_size, make_defense = factory.load_ours_for_search(
+        str(tmp_path / f"ours_linear_noise_{family}.yaml"), device="cpu")
+    assert (experiment, image_size) == (family, size)
+    search_alphas = np.linspace(1.0, 0.0, 8).astype(np.float32)
+    defense = make_defense(search_alphas)
+    assert (defense.initial_noise_eps, defense.apply_blur, defense.normalize_before_purify,
+            defense.remat) == (0.0, False, True, False)
+    built.alphas.copy_(torch.tensor(search_alphas))
+    built.initial_noise_eps = 0.0
+    with torch.no_grad():
+        want = eot_wrap(built, 2)(x, list(draws[1:]))
+        got = eot_wrap(defense, 2)(x, list(draws[1:]))
     torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -177,7 +177,9 @@ def test_datasets_match_jax(folder):
 
 @pytest.mark.parametrize("kw", [dict(drop_last=False), dict(),
                                 dict(drop_last=False, shard=(1, 2)),
-                                dict(shard=(2, 3), prefetch=1)])
+                                dict(shard=(2, 3), prefetch=1),
+                                dict(shuffle=True, seed=3, drop_last=False),
+                                dict(shuffle=True, seed=1, shard=(1, 2))])
 def test_iterate_batches_matches_jax(folder, kw):
     jax_ds, ds = JaxDataset(str(folder), 24), ImageLabelDataset(str(folder), 24)
     want = list(jax_iterate_batches(jax_ds, 4, use_native=False, **kw))

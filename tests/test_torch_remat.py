@@ -7,7 +7,9 @@ class cotangents in chunks (a recompute per chunk); the route that shares
 one encode across the EoT draws as well. The remat policies
 (`dots_saveable`, `dots_with_no_batch_dims_saveable`: selective activation
 checkpointing) give the same gradients as None, and one backward per
-forward is all torch allows them. Also: other policy names raise, and the
+forward is all torch allows them, so class gradients in blocks run their
+forward without the policy (plain recompute) and give policy None's
+gradients as well. Also: other policy names raise, and the
 factories' defaults are the JAX factory's. Port only: the JAX remat is held
 against the plain defense by the JAX package's own tests."""
 
@@ -134,11 +136,34 @@ def test_remat_policies_give_the_gradients_of_policy_none(gender, policy_none, f
 
 
 def test_a_policy_allows_one_backward_per_forward():
-    """class_grads in blocks runs a backward per block over one forward:
-    torch refuses a second backward through a policy's saved outputs."""
+    """class_grads in blocks runs a backward per block over one forward,
+    and torch keeps a policy's saved outputs for one backward only: the
+    forward runs without the policy, with a warning, and under each policy
+    the logits and the class gradients in blocks of 3 equal policy None's
+    (the same recompute, so the same float32 operations)."""
     defense, size = _small_ids(2.0)
-    with pytest.raises(RuntimeError, match="backward an extra time"):
-        _grads(defense, size, True, 3, "dots_saveable")
+    want_logits, want = _grads(defense, size, True, 3)
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    for policy in sorted(REMAT_POLICIES):
+        with pytest.warns(UserWarning, match=f"remat_policy '{policy}' dropped"):
+            got_logits, got = _grads(defense, size, True, 3, policy)
+        torch.testing.assert_close(got_logits, want_logits, rtol=0, atol=0)
+        assert _rel(got, want) <= REMAT_RTOL, policy
+
+
+@pytest.mark.parametrize("policy", sorted(REMAT_POLICIES))
+def test_blocked_class_grads_under_a_policy_on_the_shared_encode(policy):
+    """The shared-encode route (eps 0: the encode and the decode
+    checkpointed apart), class gradients in blocks of 3 under a policy
+    against policy None, and against no remat at all."""
+    defense, size = _small_ids(0.0)
+    plain_logits, plain = _grads(defense, size, False, 3)
+    want_logits, want = _grads(defense, size, True, 3)
+    with pytest.warns(UserWarning, match="dropped"):
+        got_logits, got = _grads(defense, size, True, 3, policy)
+    torch.testing.assert_close(got_logits, want_logits, rtol=0, atol=0)
+    assert _rel(got, want) <= REMAT_RTOL
+    assert _rel(got, plain) <= REMAT_RTOL
 
 
 def test_only_the_save_nothing_policy_is_ported():

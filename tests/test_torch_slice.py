@@ -253,7 +253,7 @@ def test_flagship_rehearsal_at_reduced_depth():
 BANNED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "gen_adversarial_tpu"}
 # PIL only where an image format or the plot's title needs it, inside a
 # function, so that every module imports without it
-OPTIONAL = {"PIL": ("data/datasets.py", "eval/harness.py")}
+OPTIONAL = {"PIL": ("data/datasets.py", "eval/harness.py", "search/grid.py")}
 
 
 def _port_files():
@@ -274,6 +274,7 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "models/nvae/cells.py", "ab_k1.py", "ab_k2.py",
     "core/checkpoint.py", "data/png.py", "data/datasets.py", "eval/harness.py",
     "cli/test_defense.py",
+    "search/alphas.py", "search/grid.py", "search/gp.py", "cli/alpha_search.py",
 ]
 
 

@@ -87,23 +87,31 @@ def keyed_normal_call(key, per_draw):
     lookup, restored afterwards. A key that is not in the table gives NaN,
     and the test fails; a shape that is not in it falls through to the real
     normal (flax checks some parameter shapes by evaluating their inits)."""
+    return keyed_normal_calls([(key, per_draw)])
+
+
+def keyed_normal_calls(pairs):
+    """keyed_normal_call over several (key, per_draw) pairs in one table: a
+    function jitted under the returned jax_call finds the draws of every
+    key, so one trace serves calls with any of them."""
     import jax.numpy as jnp
 
     tables = {}
-    for d, kd in enumerate(jax.random.split(key, len(per_draw))):
-        k_noise, k_purify = jax.random.split(kd)
-        noise, purify = per_draw[d]
-        entries = [(k_noise, noise)]
-        if isinstance(purify, (list, tuple)):
-            entries += list(zip(jax.random.split(k_purify, len(purify)), purify))
-        else:
-            entries.append((k_purify, purify))
-        for k, v in entries:
-            if v is None:
-                continue
-            keys, vals = tables.setdefault(v.shape, ([], []))
-            keys.append(np.asarray(k))
-            vals.append(v)
+    for key, per_draw in pairs:
+        for d, kd in enumerate(jax.random.split(key, len(per_draw))):
+            k_noise, k_purify = jax.random.split(kd)
+            noise, purify = per_draw[d]
+            entries = [(k_noise, noise)]
+            if isinstance(purify, (list, tuple)):
+                entries += list(zip(jax.random.split(k_purify, len(purify)), purify))
+            else:
+                entries.append((k_purify, purify))
+            for k, v in entries:
+                if v is None:
+                    continue
+                keys, vals = tables.setdefault(v.shape, ([], []))
+                keys.append(np.asarray(k))
+                vals.append(v)
     tables = {s: (jnp.asarray(np.stack(k)), jnp.asarray(np.stack(v)))
               for s, (k, v) in tables.items()}
     real_normal = jax.random.normal
