@@ -60,7 +60,14 @@ bound of it) and bo (the 5 seed schedules and 2 GP steps on the kept set;
 alphas.npy and accuracies.npy checked), then an AlphaEvaluator on the
 harness's loaded flagship draws the same at one position twice and after
 fast_forward, and the GP's fit and acquisition on the card agree with the
-CPU's. Every phase prints one JSON line with its elapsed seconds;
+CPU's. Last, `train` runs the trainers at full width: 1 + 3 steps of the
+flagship NVAE's make_nvae_train_step (batch 16, input noise 0.03; no K1
+launch) and of the flagship VGG11-BN's train_step (batch 64, train_augment),
+with seconds a step and peak memory; the trained NVAE's eval
+reconstruct(deterministic=True) launches K1 50 times and sample runs; the
+NVAE written by save_variables and read back by load_variables reconstructs
+the same; and one step of a small NVAE and of a small VGG on the card
+agrees with the CPU's. Every phase prints one JSON line with its elapsed seconds;
 the second-to-last line summarises the kernels (K1 and K2, each in float32
 and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -158,6 +165,17 @@ ALPHA_ADV_BATCH = 4
 ALPHA_BO_STEPS = 2
 ALPHA_GP_POINTS = 12
 ALPHA_GP_TOL = 1e-3
+# phase `train`: the flagship NVAE's make_nvae_train_step at batch 16 with
+# input noise 0.03 and the flagship VGG11-BN's train_step at batch 64, each
+# 1 warm-up and TRAIN_STEPS timed steps; then one step of a small NVAE and
+# of a small VGG on the card against the CPU, from the same weights and
+# draws (loss, gradients, parameters, running statistics; relative)
+TRAIN_SEED = 7
+TRAIN_STEPS = 3
+TRAIN_NVAE_BATCH = 16
+TRAIN_CLF_BATCH = 64
+TRAIN_INPUT_NOISE = 0.03
+TRAIN_PARITY_RTOL = 1e-4
 # the gender CE gradient under a remat_policy against policy None (phase
 # attack_remat): the same function, but cuDNN may run other algorithms,
 # and with random weights this gradient agrees only to ~1e-3 between them in
@@ -1695,9 +1713,214 @@ def main() -> int:
             raise RuntimeError("the alpha search did not go through K1")
         return out
 
+    def train_phase():
+        # the trainers at full width: the flagship NVAE's make_nvae_train_step
+        # and the flagship VGG11-BN's train_step, then the trained NVAE's
+        # eval decodes through K1, a checkpoint round trip, and one step of
+        # a small NVAE and a small VGG on the card against the CPU
+        import dataclasses
+
+        from gen_adversarial_tpu_torch.core.checkpoint import load_variables, save_variables
+        from gen_adversarial_tpu_torch.core.convert import from_jax_variables, to_jax_variables
+        from gen_adversarial_tpu_torch.core.init import flax_init_
+        from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+        from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
+        from gen_adversarial_tpu_torch.models.nvae.model import NVAE
+        from gen_adversarial_tpu_torch.train import augment
+        from gen_adversarial_tpu_torch.train import classifier as train_clf
+        from gen_adversarial_tpu_torch.train import nvae as train_nvae
+
+        out = {"nvidia_smi": device_info["nvidia_smi"]}
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+        def timed_steps(step, n):
+            """(losses, seconds of each call) of 1 + n calls of step(i)."""
+            losses, seconds = [], []
+            for i in range(1 + n):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                loss = step(i)
+                torch.cuda.synchronize()
+                seconds.append(time.monotonic() - t)
+                losses.append(float(loss))
+            return losses, seconds
+
+        def peak_gib():
+            return torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # the flagship NVAE: 1 warm-up and TRAIN_STEPS timed steps
+        nvae = flax_init_(NVAE(FLAGSHIP_NVAE, device=dev), gen)
+        before = {k: v.clone() for k, v in nvae.state_dict().items()}
+        images = torch.rand((TRAIN_NVAE_BATCH, 64, 64, 3), generator=gen, device=dev)
+        _, nvae_step = train_nvae.make_nvae_train_step(
+            nvae, 6e-3, num_total_iter=100, input_noise=TRAIN_INPUT_NOISE)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, seconds = timed_steps(lambda i: nvae_step(
+            {"image": images}, position_generator(dev, TRAIN_SEED, i), i)[0], TRAIN_STEPS)
+        out["nvae"] = {"batch": TRAIN_NVAE_BATCH, "losses": losses, "step_s": seconds,
+                       "s_per_step": sum(seconds[1:]) / TRAIN_STEPS,
+                       "peak_gib": peak_gib(), "k1_launches": k1.launches}
+        if k1.launches:
+            raise RuntimeError(f"the NVAE's training steps launched K1 {k1.launches} times")
+        after = nvae.state_dict()
+        moved = {kind: sum(not torch.equal(after[k], before[k]) for k in after
+                           if k.endswith(suffix))
+                 for kind, suffix in (("weights", "weight"), ("running_means", "running_mean"),
+                                      ("running_vars", "running_var"))}
+        out["nvae"]["changed"] = moved
+        if not all(math.isfinite(v) for v in losses) or not all(moved.values()):
+            raise RuntimeError(f"NVAE training: losses {losses}, changed {moved}")
+
+        # the trained NVAE's eval decodes go through K1: 50 launches a decode
+        nvae.eval().requires_grad_(False)
+        reset_counts()
+        with torch.no_grad():
+            rec = nvae.reconstruct(images, deterministic=True)
+            torch.cuda.synchronize()
+            recon_launches = k1.launches
+            sample = nvae.sample(4, gen)
+        per_decode = len(FLAGSHIP_NVAE.decoder_segment_shapes())
+        out["eval"] = {"reconstruct_k1_launches": recon_launches,
+                       "sample_k1_launches": k1.launches - recon_launches,
+                       "per_decode": per_decode}
+        if recon_launches != per_decode or k1.launches != 2 * per_decode:
+            raise RuntimeError(f"eval decodes: {out['eval']}")
+        if rec.shape != images.shape or sample.shape != (4, 64, 64, 3) or \
+                not (torch.isfinite(rec).all() and torch.isfinite(sample).all()):
+            raise RuntimeError(f"reconstruct {tuple(rec.shape)}, sample {tuple(sample.shape)}")
+
+        # the trained NVAE through save_variables / load_variables
+        path = Path(scratch.name) / "trained_nvae.msgpack"
+        save_variables(path, to_jax_variables(nvae),
+                       {"epoch": 0, "config": dataclasses.asdict(FLAGSHIP_NVAE)})
+        variables, meta = load_variables(path)
+        fresh = NVAE(NVAEConfig(**meta["config"]), device=dev)
+        fresh = from_jax_variables(variables, fresh).eval().requires_grad_(False)
+        with torch.no_grad():
+            again = fresh.reconstruct(images, deterministic=True)
+        out["roundtrip_max_abs_err"] = (again - rec).abs().max().item()
+        if out["roundtrip_max_abs_err"] > 1e-6:
+            raise RuntimeError(f"the reloaded NVAE reconstructs {out['roundtrip_max_abs_err']} "
+                               "away from the trained one")
+        del nvae, fresh, before, after, variables
+
+        # the flagship VGG11-BN: 1 warm-up and TRAIN_STEPS timed train_steps
+        clf = flax_init_(VGG11BN(100, device=dev), gen).to(memory_format=torch.channels_last)
+        state = train_clf.create_train_state(clf, 0.01)
+        batch = {"image": torch.rand((TRAIN_CLF_BATCH, 64, 64, 3), generator=gen, device=dev),
+                 "label": torch.randint(0, 100, (TRAIN_CLF_BATCH,), generator=gen, device=dev)}
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds = timed_steps(lambda i: train_clf.train_step(
+            state, batch, position_generator(dev, TRAIN_SEED, i)), TRAIN_STEPS)
+        out["vgg"] = {"batch": TRAIN_CLF_BATCH, "losses": losses, "step_s": seconds,
+                      "s_per_step": sum(seconds[1:]) / TRAIN_STEPS, "peak_gib": peak_gib()}
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"VGG training: losses {losses}")
+        del clf, state, batch
+
+        # one step of a small NVAE and of a small VGG, on the card and on the
+        # CPU, from the same weights and draws. Errors are relative to a
+        # scale that the noise of float32 sums cannot cross: gradients to the
+        # largest gradient; a parameter to its tensor's largest value, or,
+        # where that is not met, the gradient its step implies to the
+        # largest gradient (a bias before a training BatchNorm has a true
+        # gradient of 0, and Adamax's first step lr * G / (|G| + eps) turns
+        # the noise into a step of either sign); running statistics to the
+        # layer's running variance (a mean after a bias-free 1x1 of
+        # normalized inputs is 0 up to noise)
+        def step_errors(results, start, implied_grad):
+            (want_loss, want, want_g), (got_loss, got, got_g) = results["cpu"], results["cuda"]
+            scale = max(g.abs().max().item() for g in want_g.values())
+            params = 0.0
+            for k, g0 in want_g.items():
+                w, g, p0 = want[k].double(), got[k].double().cpu(), start[k].double()
+                rel_p = (g - w).abs() / w.abs().max().clamp(min=1e-12)
+                rel_g = (implied_grad(p0, g) - implied_grad(p0, w)).abs() / scale
+                params = max(params, torch.minimum(rel_p, rel_g).max().item())
+            stats = 0.0
+            for k in want:
+                if k.endswith("running_var"):
+                    layer = k[:-len("running_var")]
+                    var = want[k].double().abs().max().clamp(min=1e-12)
+                    for name in ("running_mean", "running_var"):
+                        diff = got[layer + name].double().cpu() - want[layer + name].double()
+                        stats = max(stats, (diff.abs().max() / var).item())
+            return {"loss": abs(got_loss - want_loss) / abs(want_loss),
+                    "grads": max(((got_g[n] - want_g[n]).abs().max() / scale).item()
+                                 for n in want_g),
+                    "params": params, "running_stats": stats}
+
+        def adamax_grad(p0, p, lr=6e-3, eps=1e-3):
+            # the gradient a first Adamax step implies: p = p0 - lr G / (|G| + eps)
+            a = torch.clamp((p0 - p) / lr, -0.999999, 0.999999)
+            return eps * a / (1 - a.abs())
+
+        def sgd_grad(p0, p, lr=0.01):
+            return (p0 - p) / lr  # a first SGD step: the momentum buffer is G
+
+        def one_step(models, step):
+            results = {}
+            for where, model in models.items():
+                # oneDNN's convolution backward corrupted the heap in NVAE
+                # training steps on torch 2.13's CPU build: the CPU steps go
+                # around it
+                with torch.backends.mkldnn.flags(enabled=False):
+                    loss = step(where, model)
+                results[where] = (loss, {k: v.detach().cpu().clone()
+                                         for k, v in model.state_dict().items()},
+                                  {n: p.grad.detach().cpu().clone()
+                                   for n, p in model.named_parameters()})
+            return results
+
+        cpu_gen = torch.Generator().manual_seed(TRAIN_SEED)
+        small_cfg = NVAEConfig(resolution=16, initial_channels=8, n_pre_post_blocks=1,
+                               n_pre_post_cells=2, num_scales=2, num_groups_per_scale=2,
+                               is_adaptive=False, num_cells_per_group=1,
+                               num_latent_per_group=4, num_mixtures=3)
+        cpu_nvae = flax_init_(NVAE(small_cfg, device="cpu"), cpu_gen)
+        start = {k: v.clone() for k, v in cpu_nvae.state_dict().items()}
+        models = {"cpu": cpu_nvae, "cuda": copy.deepcopy(cpu_nvae).to(dev)}
+        x = torch.rand((2, 16, 16, 3), generator=cpu_gen)
+        draws = [torch.randn((2, 16, 16, 3), generator=cpu_gen)]
+        draws += [torch.randn(s, generator=cpu_gen) for s in eps_shapes(small_cfg, 2)]
+
+        def nvae_one(where, model):
+            _, step = train_nvae.make_nvae_train_step(model, 6e-3, num_total_iter=100,
+                                                      input_noise=TRAIN_INPUT_NOISE)
+            return step({"image": x}, list(draws), 5)[0].item()
+
+        nvae_err = step_errors(one_step(models, nvae_one), start, adamax_grad)
+
+        cpu_vgg = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"), cpu_gen)
+        start = {k: v.clone() for k, v in cpu_vgg.state_dict().items()}
+        vggs = {"cpu": cpu_vgg, "cuda": copy.deepcopy(cpu_vgg).to(dev)}
+        batch = {"image": torch.rand((4, 16, 16, 3), generator=cpu_gen),
+                 "label": torch.randint(0, 10, (4,), generator=cpu_gen)}
+        params = augment.draw_augment(cpu_gen, 4)
+
+        def fixed_augment(images, generator):
+            out = augment.apply_augment(images, {k: v.to(images.device)
+                                                 for k, v in params.items()})
+            return (out - 0.5) / 0.5
+
+        def vgg_one(where, model):
+            st = train_clf.create_train_state(model, 0.01)
+            return train_clf.train_step(st, batch, None, augment=fixed_augment).item()
+
+        vgg_err = step_errors(one_step(vggs, vgg_one), start, sgd_grad)
+        out["gpu_vs_cpu"] = {"nvae": nvae_err, "vgg": vgg_err, "tol": TRAIN_PARITY_RTOL}
+        errors = list(nvae_err.values()) + list(vgg_err.values())
+        if not all(math.isfinite(e) and e <= TRAIN_PARITY_RTOL for e in errors):
+            raise RuntimeError(f"a train step on the card differs from the CPU's: "
+                               f"{out['gpu_vs_cpu']}")
+        out["k1_launches"] = recon_launches + out["eval"]["sample_k1_launches"]
+        return out
+
     try:
         harness = run_phase("harness", harness_phase)
         alpha = run_phase("alpha_search", alpha_search_phase)
+        train = run_phase("train", train_phase)
     finally:
         shared.clear()
         scratch.cleanup()
@@ -1765,7 +1988,8 @@ def main() -> int:
               attack_launches={"attacks_parity": attack_parity["k1_launches"],
                                "attack_flagship": attack_flag["k1_launches"],
                                "harness": harness["k1_launches"],
-                               "alpha_search": alpha["k1_launches"]}),
+                               "alpha_search": alpha["k1_launches"],
+                               "train": train["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
         # `max_abs_err` cover both paths, and `cars` holds the cars path's
         entry("upfirdn_blur", "float32", k2.SOURCE,

@@ -17,6 +17,16 @@ Reading maps the file (copy on write) and takes every array's bytes from
 the mapping with `np.frombuffer`, so nothing is copied until a chunked array
 is joined or a caller converts. A `bfloat16` leaf (numpy has no such dtype)
 comes back as a `torch.bfloat16` tensor over the same bytes.
+
+A trainer's periodic state (`save_train_state`, `load_train_state`,
+`latest_step`; the classifier trainer's resume points) is a directory
+`step_NNNNNNNN/` holding `train_state.msgpack`: the model's flax variable
+tree (`params`, `batch_stats`, as `save_variables` writes them), the SGD
+momentum buffers under `momentum` (keyed by the port's parameter names, in
+the port's layout) and the `step`. The JAX package writes the same
+directory names with orbax (which the GPU machine does not have), so
+`latest_step` finds either package's, but the two packages' train states do
+not read each other's. Their `save_variables` files do.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from gen_adversarial_tpu_torch.core.convert import from_jax_variables, to_jax_variables
 
 # flax.serialization.MAX_CHUNK_SIZE: larger arrays are written in chunks
 MAX_CHUNK_SIZE = 2 ** 30
@@ -309,3 +321,48 @@ def load_variables(path: str | Path) -> tuple:
     meta_path = path.with_suffix(".json")
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
     return variables, meta
+
+
+TRAIN_STATE_FILE = "train_state.msgpack"
+
+
+def _step_dir(ckpt_dir: str | Path, step: int) -> Path:
+    return Path(ckpt_dir) / f"step_{step:08d}"
+
+
+def save_train_state(ckpt_dir: str | Path, state, step: int) -> None:
+    """`state` (a `train/classifier.TrainState`: model, SGD optimizer, step)
+    into `ckpt_dir/step_NNNNNNNN/`."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    momentum = {}
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                momentum[names[id(p)]] = buf.detach().cpu().numpy()
+    d = _step_dir(ckpt_dir, step)
+    d.mkdir(parents=True, exist_ok=True)
+    msgpack_write(d / TRAIN_STATE_FILE, {**to_jax_variables(state.model),
+                                         "momentum": momentum, "step": int(state.step)})
+
+
+def load_train_state(ckpt_dir: str | Path, step: int, target):
+    """The state saved at `step` loaded into `target` (a TrainState of the
+    same model and optimizer) in place; returns it."""
+    tree = msgpack_restore(_step_dir(ckpt_dir, step) / TRAIN_STATE_FILE)
+    from_jax_variables({k: tree[k] for k in ("params", "batch_stats") if k in tree},
+                       target.model)
+    params = dict(target.model.named_parameters())
+    for name, buf in tree["momentum"].items():
+        p = params[name]
+        target.optimizer.state[p]["momentum_buffer"] = torch.tensor(np.array(buf)).to(p)
+    target.step = int(tree["step"])
+    return target
+
+
+def latest_step(ckpt_dir: str | Path) -> int | None:
+    """Highest step_NNNNNNNN checkpoint directory in ckpt_dir (either
+    package's), or None if there is none."""
+    steps = sorted(int(p.name.split("_")[1])
+                   for p in Path(ckpt_dir).glob("step_*") if p.is_dir())
+    return steps[-1] if steps else None

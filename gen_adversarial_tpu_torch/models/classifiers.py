@@ -5,7 +5,10 @@ gen_adversarial_tpu/models/classifiers.py), built in eval mode.
 
 Submodule names follow the JAX variable tree (`conv0`, `bn0`, ...,
 `classifier.fc0/bn/fc1`; `layer2_0.downsample_conv`, `fc.fc0`) so
-`core/convert.py` maps weights by name.
+`core/convert.py` maps weights by name. Under `module.train()` every
+BatchNorm, the projector's included, normalises with the batch's statistics
+and updates its running ones as flax's `_bn` does (momentum 0.9 in flax's
+terms, the biased variance; `models/batchnorm.py`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gen_adversarial_tpu_torch.models.batchnorm import BatchNorm1d, BatchNorm2d
 from gen_adversarial_tpu_torch.ops.image import adaptive_avg_pool_general
 
 # vgg11_bn feature plan: channel counts with 'M' maxpools between stages
@@ -29,7 +33,7 @@ class Projector(nn.Module):
     def __init__(self, d: int, n_classes: int, device=None):
         super().__init__()
         self.fc0 = nn.Linear(d, d, bias=False, device=device)
-        self.bn = nn.BatchNorm1d(d, eps=1e-5, device=device)
+        self.bn = BatchNorm1d(d, eps=1e-5, device=device)
         self.fc1 = nn.Linear(d, n_classes, device=device)
 
     def forward(self, x):
@@ -46,7 +50,7 @@ class VGG11BN(nn.Module):
             if item == "M":
                 continue
             self.add_module(f"conv{i}", nn.Conv2d(in_ch, item, 3, padding=1, device=device))
-            self.add_module(f"bn{i}", nn.BatchNorm2d(item, eps=1e-5, device=device))
+            self.add_module(f"bn{i}", BatchNorm2d(item, eps=1e-5, device=device))
             in_ch = item
             i += 1
         self.classifier = Projector(in_ch * 7 * 7, n_classes, device=device)
@@ -77,16 +81,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         width, out_ch = int(planes * (base_width / 64.0)) * groups, planes * 4
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False, device=device)
-        self.bn1 = nn.BatchNorm2d(width, eps=1e-5, device=device)
+        self.bn1 = BatchNorm2d(width, eps=1e-5, device=device)
         self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, groups=groups,
                                bias=False, device=device)
-        self.bn2 = nn.BatchNorm2d(width, eps=1e-5, device=device)
+        self.bn2 = BatchNorm2d(width, eps=1e-5, device=device)
         self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False, device=device)
-        self.bn3 = nn.BatchNorm2d(out_ch, eps=1e-5, device=device)
+        self.bn3 = BatchNorm2d(out_ch, eps=1e-5, device=device)
         if in_ch != out_ch or stride != 1:
             self.downsample_conv = nn.Conv2d(in_ch, out_ch, 1, stride, bias=False,
                                              device=device)
-            self.downsample_bn = nn.BatchNorm2d(out_ch, eps=1e-5, device=device)
+            self.downsample_bn = BatchNorm2d(out_ch, eps=1e-5, device=device)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -106,7 +110,7 @@ class ResNetBackbone(nn.Module):
                  groups: int = 1, base_width: int = 64, device="cuda"):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False, device=device)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5, device=device)
+        self.bn1 = BatchNorm2d(64, eps=1e-5, device=device)
         self.blocks = []
         in_ch = 64
         for stage, n_blocks in enumerate(layers):

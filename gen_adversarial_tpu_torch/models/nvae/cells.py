@@ -1,11 +1,16 @@
 """NVAE building-block cells on NCHW tensors (counterpart of
-gen_adversarial_tpu/models/nvae/cells.py), in eval mode: every BatchNorm uses
-its running statistics.
+gen_adversarial_tpu/models/nvae/cells.py). In eval mode every BatchNorm uses
+its running statistics; under `module.train()` every BatchNorm normalises
+with the batch's statistics and updates its running ones as flax does
+(`models/batchnorm.py`: momentum 0.95 in flax's terms, the biased variance).
 
 Submodule names follow the JAX package's variable tree (`bn0`, `conv_expand`,
 `conv_depthwise`, `se.linear_1`, `skip.conv`, ...), so `core/convert.py` maps
-weights by name. The decoder cell's BN-SiLU-DW5x5-BN-SiLU segment goes
-through the fused kernel `ops/depthwise.depthwise_silu_segment`.
+weights by name. In eval mode the decoder cell's BN-SiLU-DW5x5-BN-SiLU
+segment goes through the fused kernel `ops/depthwise.depthwise_silu_segment`
+(K1), whose affines fold the running statistics; in training it is computed
+from PyTorch ops with batch statistics, off the kernel, as the JAX package's
+`conv` mode trains.
 The normalizing-flow cells (`make_ar_mask`, `MaskedConv2d`, `NFCell`,
 `NFBlock`) are plain PyTorch: the purify path applies them to each latent
 after its mix when the configuration sets `num_nf_cells`.
@@ -18,12 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gen_adversarial_tpu_torch.models.batchnorm import BatchNorm2d
 from gen_adversarial_tpu_torch.ops.depthwise import depthwise_silu_segment
 from gen_adversarial_tpu_torch.ops.image import upsample_bilinear2x
 
 
-def _bn(ch: int, device) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.05, device=device)
+def _bn(ch: int, device) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.05, device=device)
 
 
 _BN_TENSORS = ("weight", "bias", "running_mean", "running_var")
@@ -102,9 +108,10 @@ class ResidualCellEncoder(nn.Module):
 
 
 class ResidualCellDecoder(nn.Module):
-    """MBConv-style cell: 1x1 expand -> fused BN-SiLU-DW5x5-BN-SiLU segment
+    """MBConv-style cell: BN -> 1x1 expand -> BN-SiLU-DW5x5-BN-SiLU segment
     -> 1x1 project -> BN -> SE, optional nearest x2 upsampling, 0.1-scaled
-    residual."""
+    residual. The segment is K1 in eval mode and plain PyTorch with batch
+    statistics in training."""
 
     def __init__(self, in_ch: int, out_ch: int, upsampling: bool, use_se: bool,
                  hidden_mul: int = 6, device=None):
@@ -159,8 +166,14 @@ class ResidualCellDecoder(nn.Module):
         r = x
         if self.upsampling:
             r = F.interpolate(r, scale_factor=2, mode="nearest")
-        r = self.conv_expand(self.bn0(r)).contiguous(memory_format=torch.channels_last)
-        r = depthwise_silu_segment(r, *self.segment_args())
+        r = self.conv_expand(self.bn0(r))
+        if self.training:
+            r = F.silu(self.bn1(r))
+            r = F.conv2d(r, self.conv_depthwise.weight, padding=2, groups=r.shape[1])
+            r = F.silu(self.bn2(r))
+        else:
+            r = r.contiguous(memory_format=torch.channels_last)
+            r = depthwise_silu_segment(r, *self.segment_args())
         r = self.bn3(self.conv_project(r))
         if self.se is not None:
             r = self.se(r)

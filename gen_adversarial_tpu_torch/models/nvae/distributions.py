@@ -1,19 +1,22 @@
 """NVAE distributions on NCHW tensors (counterpart of
 gen_adversarial_tpu/models/nvae/distributions.py): the soft-clamped Normal
-and the deterministic mean of the 10-mixture discretized logistic, which is
-all the purify path needs. `log_prob` and the gumbel `sample` of the mixture
-come with the training slice.
+(sampling, log density, closed-form KL) and the discretized logistic
+mixture (log_prob with the reference's asymmetric -0.999 / 0.99 edges, the
+gumbel `sample`, the deterministic mean).
 
 Random draws come from a `Draws` source: a `torch.Generator`, or recorded
-tensors replayed in order (the tests feed the JAX package's noise this way).
+tensors replayed in order (the tests feed the JAX package's normals and
+uniforms this way).
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Iterable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def soft_clamp(x: torch.Tensor, n: float = 5.0) -> torch.Tensor:
@@ -21,11 +24,13 @@ def soft_clamp(x: torch.Tensor, n: float = 5.0) -> torch.Tensor:
 
 
 class Draws:
-    """Standard-normal draws, from a generator or replayed in order.
+    """Standard-normal and uniform draws, from a generator or replayed in
+    order.
 
     `source` is a `torch.Generator` (draws are made on the tensor's device,
     which must be the generator's) or an iterable of tensors, each of which
-    must have exactly the shape that is asked for next."""
+    must have exactly the shape that is asked for next (a replayed uniform
+    is the value itself, already in [low, high))."""
 
     def __init__(self, source: torch.Generator | Iterable[torch.Tensor]):
         self.generator = source if isinstance(source, torch.Generator) else None
@@ -36,6 +41,19 @@ class Draws:
         if self.generator is not None:
             return torch.randn(shape, generator=self.generator,
                                device=like.device, dtype=like.dtype)
+        return self._next(shape, like)
+
+    def uniform(self, shape, like: torch.Tensor, low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        """Uniform in [low, high), as jax.random.uniform(minval, maxval)."""
+        shape = tuple(shape)
+        if self.generator is not None:
+            u = torch.rand(shape, generator=self.generator, device=like.device,
+                           dtype=like.dtype)
+            return torch.clamp(u * (high - low) + low, min=low)
+        return self._next(shape, like)
+
+    def _next(self, shape: tuple, like: torch.Tensor) -> torch.Tensor:
         try:
             eps = next(self._replay)
         except StopIteration:
@@ -72,6 +90,26 @@ class Normal:
     def sample_given_eps(self, eps):
         return self.mu + eps * self.sigma
 
+    def log_p(self, samples):
+        z = (samples - self.mu) / self.sigma
+        return -0.5 * z ** 2 - 0.5 * math.log(2 * math.pi) - torch.log(self.sigma)
+
+    def kl(self, prior: "Normal"):
+        delta_mu = self.mu - prior.mu
+        delta_sigma = self.sigma / prior.sigma
+        term1 = delta_mu ** 2 / prior.sigma ** 2
+        return 0.5 * (term1 + delta_sigma ** 2) - 0.5 - torch.log(delta_sigma)
+
+
+def gumbel_argmax_one_hot(draws: Draws, logits: torch.Tensor, dim: int = 1,
+                          temperature: float = 1.0) -> torch.Tensor:
+    """One-hot of argmax(logits / T + Gumbel noise) over `dim`, the noise
+    from uniforms in [1e-5, 1 - 1e-5] of the logits' shape."""
+    u = draws.uniform(logits.shape, logits, 1e-5, 1.0 - 1e-5)
+    g = -torch.log(-torch.log(u))
+    idx = torch.argmax(logits / temperature + g, dim=dim)
+    return F.one_hot(idx, logits.shape[dim]).movedim(-1, dim).to(logits.dtype)
+
 
 class DiscMixLogistic:
     """Mixture of discretized logistics over 3-channel images in [-1, 1].
@@ -80,15 +118,62 @@ class DiscMixLogistic:
     first the M mixture logits, then for each mixture n the 9 values
     [mean_r, mean_g, mean_b, s_r, s_g, s_b, k_rg, k_rb, k_gb]."""
 
+    max_val = 2.0 ** 8 - 1
+
     def __init__(self, params: torch.Tensor):
         b, ch, h, w = params.shape
         m = ch // 10
         self.logits = params[:, :m]                            # (B,M,H,W)
         rest = params[:, m:].reshape(b, m, 9, h, w)
         self.means = rest[:, :, 0:3]                           # (B,M,3,H,W)
-        # rest[:, :, 3:6] are the log scales, which only log_prob and sample
-        # read (not ported yet)
+        self.log_scales = torch.clamp(rest[:, :, 3:6], min=-7.0)
         self.coeffs = torch.tanh(rest[:, :, 6:9])
+
+    def _adjusted_means(self, samples):
+        """PixelCNN++ channel-autoregressive means; samples (B,3,H,W) ->
+        (B,M,3,H,W)."""
+        s = samples[:, None]
+        r = self.means[:, :, 0]
+        g = self.means[:, :, 1] + self.coeffs[:, :, 0] * s[:, :, 0]
+        bl = self.means[:, :, 2] + self.coeffs[:, :, 1] * s[:, :, 0] + \
+            self.coeffs[:, :, 2] * s[:, :, 1]
+        return torch.stack([r, g, bl], dim=2)
+
+    def log_prob(self, samples: torch.Tensor) -> torch.Tensor:
+        """samples in [-1, 1], (B,3,H,W) -> per-pixel log prob (B,H,W). A
+        channel value below -0.999 takes the left tail, one above 0.99 the
+        right tail (the reference's asymmetric edges); the bin's log mass is
+        taken of max(cdf_delta, 1e-10), so the branch that `where` drops
+        keeps a finite gradient."""
+        s = samples[:, None]
+        centered = s - self._adjusted_means(samples)
+        neg_scale = torch.exp(-self.log_scales)
+        plus_in = neg_scale * (centered + 1.0 / self.max_val)
+        min_in = neg_scale * (centered - 1.0 / self.max_val)
+        cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+        log_cdf_plus = plus_in - F.softplus(plus_in)
+        log_one_minus_cdf_min = -F.softplus(min_in)
+        safe = neg_scale * centered
+        safe = safe - self.log_scales - 2.0 * F.softplus(safe)
+        safe = safe - math.log(self.max_val / 2)
+        mid = torch.where(cdf_delta > 1e-5, torch.log(torch.clamp(cdf_delta, min=1e-10)),
+                          safe)
+        log_probs = torch.where(s < -0.999, log_cdf_plus,
+                                torch.where(s > 0.99, log_one_minus_cdf_min, mid))
+        log_probs = log_probs.sum(2) + torch.log_softmax(self.logits, dim=1)
+        return torch.logsumexp(log_probs, dim=1)
+
+    def sample(self, draws: Draws) -> torch.Tensor:
+        """A draw of the mixture, (B,3,H,W) in [-1, 1]: the component by
+        gumbel argmax (uniforms of the logits' shape), then a logistic draw
+        (uniforms of the image's shape, in [1e-5, 1 - 1e-5])."""
+        sel = gumbel_argmax_one_hot(draws, self.logits)[:, :, None]  # (B,M,1,H,W)
+        mu = torch.sum(self.means * sel, dim=1)
+        scale = torch.sum(self.log_scales * sel, dim=1)
+        k = torch.sum(self.coeffs * sel, dim=1)
+        u = draws.uniform(mu.shape, mu, 1e-5, 1.0 - 1e-5)
+        x = mu + torch.exp(scale) * (torch.log(u) - torch.log(1.0 - u))
+        return self._autoregress(x, k)
 
     @staticmethod
     def _autoregress(x, k):

@@ -1,19 +1,29 @@
-"""Hierarchical NVAE on NCHW tensors, the purify path only (counterpart of
-gen_adversarial_tpu/models/nvae/model.py).
+"""Hierarchical NVAE on NCHW tensors (counterpart of
+gen_adversarial_tpu/models/nvae/model.py): the purify path, the training
+forward with its per-group KL, `reconstruction_loss`, prior `sample` and
+posterior `reconstruct`.
 
 Submodules carry the JAX variable tree's names (`init_conv`,
 `pre_cells_0_0`, `enc_cells_1_0_0`, `dec_sampler_1_1`, ...: a ModuleDict
 attribute plus its key), so `core/convert.py` loads JAX weights by name.
-The module is built in eval mode. With `num_nf_cells` set, each latent
-group has that many normalizing-flow blocks (`nf_cells_{s}_{g}_{i}`), applied
-to the group's z after its mix, as the JAX purify does. The training
-forward, `sample` and `reconstruct` come with later slices.
+The module is built in eval mode; `module.train()` gives the training
+forward its batch statistics (`models/nvae/cells.py`). With `num_nf_cells`
+set, each latent group has that many normalizing-flow blocks
+(`nf_cells_{s}_{g}_{i}`), applied to the group's z after it is drawn or
+mixed, as in the JAX package.
+
+Images come in and go out NHWC in [0, 1], as in the JAX package; the
+mixture's logits are NCHW. Draws (a `Draws` source) are taken in JAX's
+order: z_0, then each latent group in decode order, then, where the decode
+is sampled, the mixture's gumbel uniforms (the logits' shape) and its
+logistic uniforms (the image's shape).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,6 +53,25 @@ class NVAEConfig:
     num_nf_cells: int | None = None
     use_se: bool = True
 
+    @classmethod
+    def from_reference_dict(cls, ae_args: dict, resolution: tuple) -> "NVAEConfig":
+        """From the ae_args dict stored inside reference NVAE checkpoints;
+        `resolution` is (channels, size)."""
+        return cls(
+            resolution=resolution[1], img_channels=resolution[0],
+            initial_channels=ae_args["initial_channels"],
+            n_pre_post_blocks=ae_args["num_pre-post_process_blocks"],
+            n_pre_post_cells=ae_args["num_pre-post_process_cells"],
+            num_mixtures=ae_args["num_logistic_mixtures"],
+            num_scales=ae_args["num_scales"],
+            min_groups_per_scale=ae_args["min_groups_per_scale"],
+            num_groups_per_scale=ae_args["num_groups_per_scale"],
+            is_adaptive=ae_args["is_adaptive"],
+            num_cells_per_group=ae_args["num_cells_per_group"],
+            num_latent_per_group=ae_args["num_latent_per_group"],
+            num_nf_cells=ae_args["num_nf_cells"],
+        )
+
     @property
     def groups_per_scale(self) -> list:
         g = [max(self.min_groups_per_scale, self.num_groups_per_scale // (2 ** i))
@@ -58,6 +87,15 @@ class NVAEConfig:
     @property
     def n_latents(self) -> int:
         return sum(self.groups_per_scale)
+
+    def kl_alpha(self) -> np.ndarray:
+        """Per-group KL weights (the square schedule over the scales), in
+        decode order, normalized to min 1."""
+        parts = [(2 ** i) ** 2 / self.groups_per_scale[self.num_scales - i - 1]
+                 * np.ones(self.groups_per_scale[self.num_scales - i - 1])
+                 for i in range(self.num_scales)]
+        kl = np.concatenate(parts)
+        return kl / kl.min()
 
     def decoder_segment_shapes(self) -> list[tuple[int, int]]:
         """(hidden channels, spatial size) of the fused depthwise segment of
@@ -219,9 +257,100 @@ class NVAE(nn.Module):
                 x = self.dec_cells[f"{s}_up"](x)
         return x
 
+    def _prior_params(self, s, g, x):
+        return self.dec_sampler[f"{s}_{g}"](F.elu(x)).chunk(2, dim=1)
+
+    def _posterior(self, s, g, feats, x, temperature: float = 1.0):
+        """(prior at `temperature`, posterior) Normals of group (s, g) given
+        the decoder's x."""
+        mu_p, log_sig_p = self._prior_params(s, g, x)
+        comb = self.enc_combiners[f"{s}_{g}"](feats[f"{s}_{g}"], x)
+        mu_q, log_sig_q = self.enc_sampler[f"{s}_{g}"](comb).chunk(2, dim=1)
+        return (Normal(mu_p, log_sig_p, temp=temperature),
+                Normal(mu_p + mu_q, log_sig_p + log_sig_q))
+
+    def forward(self, x, draws):
+        """The training forward: x (B, H, W, 3) NHWC in [0, 1] -> (mixture
+        logits (B, M * 10, H, W), KL (B, n_latents)). Each group's z is drawn
+        from its posterior; with flow cells the KL is log q(z) - log p(f(z))
+        at the drawn z, without them the closed-form KL."""
+        draws = as_draws(draws)
+        flows = self.cfg.num_nf_cells is not None
+        feats, top = self.purify_encode(x)
+        b = top.shape[0]
+        mu_q, log_sig_q = self.enc_sampler["0_0"](top).chunk(2, dim=1)
+        dist_enc = Normal(mu_q, log_sig_q)
+        dist_dec = Normal(torch.zeros_like(mu_q), torch.zeros_like(log_sig_q))
+        kls = []
+
+        def draw(s, g, dist_enc, dist_dec):
+            z = dist_enc.sample(draws)[0]
+            if flows:
+                log_enc = dist_enc.log_p(z)
+                z = self._apply_nf(s, g, z)
+                kl = log_enc - dist_dec.log_p(z)
+            else:
+                kl = dist_enc.kl(dist_dec)
+            kls.append(kl.sum((1, 2, 3)))
+            return z
+
+        def group_fn(s, g, x, latent_idx):
+            return draw(s, g, *reversed(self._posterior(s, g, feats, x)))
+
+        z_0 = draw(0, 0, dist_enc, dist_dec)
+        x = self._decode_groups(b, z_0, group_fn)
+        return self._postprocess_to_logits(x), torch.stack(kls, dim=1)
+
+    @staticmethod
+    def reconstruction_loss(x, logits):
+        """-log p(x | logits) per sample: x (B, H, W, 3) NHWC in [0, 1],
+        logits NCHW -> (B,)."""
+        normalized = ((x - 0.5) / 0.5).permute(0, 3, 1, 2)
+        return -DiscMixLogistic(logits).log_prob(normalized).sum((1, 2))
+
+    def sample(self, num_samples: int, draws, temperature: float = 1.0,
+               dtype=torch.float32):
+        """Images (num_samples, H, W, 3) in [0, 1] from the prior at
+        `temperature`, the decode sampled from the mixture."""
+        draws = as_draws(draws)
+        cfg = self.cfg
+        r = cfg.resolution // cfg.scaling_factor
+        zeros = torch.zeros((num_samples, cfg.num_latent_per_group, r, r), dtype=dtype,
+                            device=self.const_prior.device)
+        z_0 = Normal(zeros, zeros, temp=temperature).sample(draws)[0]
+
+        def group_fn(s, g, x, latent_idx):
+            return Normal(*self._prior_params(s, g, x), temp=temperature).sample(draws)[0]
+
+        x = self._decode_groups(num_samples, z_0, group_fn)
+        out = DiscMixLogistic(self._postprocess_to_logits(x)).sample(draws)
+        return (out * 0.5 + 0.5).permute(0, 2, 3, 1)
+
+    def reconstruct(self, x, draws=None, deterministic: bool = False):
+        """Posterior reconstruction of x (B, H, W, 3) NHWC in [0, 1], NHWC in
+        [0, 1]: with `deterministic` every z is its posterior mean and the
+        decode the mixture's mean (no draws), else each is drawn."""
+        draws = None if deterministic else as_draws(draws)
+        feats, top = self.purify_encode(x)
+        b = top.shape[0]
+        mu_q, log_sig_q = self.enc_sampler["0_0"](top).chunk(2, dim=1)
+        dist_enc = Normal(mu_q, log_sig_q)
+        z_0 = dist_enc.mu if deterministic else dist_enc.sample(draws)[0]
+        z_0 = self._apply_nf(0, 0, z_0)
+
+        def group_fn(s, g, x, latent_idx):
+            dist_enc = self._posterior(s, g, feats, x)[1]
+            z_i = dist_enc.mu if deterministic else dist_enc.sample(draws)[0]
+            return self._apply_nf(s, g, z_i)
+
+        x = self._decode_groups(b, z_0, group_fn)
+        dm = DiscMixLogistic(self._postprocess_to_logits(x))
+        out = dm.mean() if deterministic else dm.sample(draws)
+        return (out * 0.5 + 0.5).permute(0, 2, 3, 1)
+
     def purify_encode(self, x):
-        """Deterministic half of `purify`: x (B, H, W, 3) NHWC in [0, 1] ->
-        state (feats dict, top feature), NCHW channels_last."""
+        """The encoder (the deterministic half of `purify`): x (B, H, W, 3)
+        NHWC in [0, 1] -> (feats dict, top feature), NCHW channels_last."""
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self._encode_tower(self._preprocess(x))
 
@@ -244,11 +373,7 @@ class NVAE(nn.Module):
         z_0 = self._apply_nf(0, 0, z_0)
 
         def group_fn(s, g, x, latent_idx):
-            comb = self.enc_combiners[f"{s}_{g}"](feats[f"{s}_{g}"], x)
-            mu_q, log_sig_q = self.enc_sampler[f"{s}_{g}"](comb).chunk(2, dim=1)
-            mu_p, log_sig_p = self.dec_sampler[f"{s}_{g}"](F.elu(x)).chunk(2, dim=1)
-            dist_enc = Normal(mu_p + mu_q, log_sig_p + log_sig_q)
-            dist_dec = Normal(mu_p, log_sig_p, temp=temperature)
+            dist_dec, dist_enc = self._posterior(s, g, feats, x, temperature)
             a = alphas[latent_idx]
             return self._apply_nf(s, g, (1 - a) * dist_enc.mu + a * dist_dec.sample(draws)[0])
 

@@ -4,9 +4,12 @@ the gender defense (batch 2 at 256 px, initial noise eps 4.0) or of the cars
 defense (batch 4 at 128 px, initial noise eps 4.0), random weights from
 seed 0, in float32 (TF32 off) or in bfloat16 (core/precision.defense_astype
 after the build): one warm-up call, 2 calls untraced, then 2 calls traced.
+`--family nvae_train` traces the flagship NVAE's training step instead
+(train/nvae.make_nvae_train_step at batch 16, 64 px, input noise 0.03,
+float32: the forward with batch statistics, the backward and Adamax).
 
-    python3 -m gen_adversarial_tpu_torch.profile_flagship [--family ids|gender|cars]
-        [--dtype float32|bfloat16]
+    python3 -m gen_adversarial_tpu_torch.profile_flagship
+        [--family ids|gender|cars|nvae_train] [--dtype float32|bfloat16]
 
 Prints one JSON line: the card (name and power limit as nvidia-smi gives
 them), the host wall time of the same number of calls untraced and traced
@@ -22,6 +25,7 @@ kernels that took the most time. Needs a CUDA device; exits non-zero without one
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -67,7 +71,10 @@ def kernel_times(prof, torch) -> dict:
 CALLS = 2
 SEED = 0
 # family -> (batch, image size, initial noise eps)
-FAMILIES = {"ids": (4, 64, 2.0), "gender": (2, 256, 4.0), "cars": (4, 128, 4.0)}
+FAMILIES = {"ids": (4, 64, 2.0), "gender": (2, 256, 4.0), "cars": (4, 128, 4.0),
+            "nvae_train": (16, 64, 0.0)}
+# the NVAE training step's input noise std
+TRAIN_INPUT_NOISE = 0.03
 
 
 def main(argv=None) -> int:
@@ -95,26 +102,46 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30)
     dev = torch.device("cuda")
-    make = {"ids": flagship, "gender": gender_defense, "cars": cars_defense}[family]
-    defense = make(initial_noise_eps=eps, device=dev, seed=SEED)
-    if args.dtype == "bfloat16":
-        defense_astype(defense, torch.bfloat16)
-    net = eot_wrap(defense, eot_steps=32)
     images = torch.rand(batch, size, size, 3, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED))
     draws = torch.Generator(device=dev).manual_seed(SEED + 1)
-    with torch.no_grad():
-        net(images, draws)
+    if family == "nvae_train":
+        if args.dtype != "float32":
+            parser.error("--family nvae_train runs in float32")
+        from gen_adversarial_tpu_torch.core.init import flax_init_
+        from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE
+        from gen_adversarial_tpu_torch.models.nvae.model import NVAE
+        from gen_adversarial_tpu_torch.train.nvae import make_nvae_train_step
+        nvae = flax_init_(NVAE(FLAGSHIP_NVAE, device=dev),
+                          torch.Generator(device=dev).manual_seed(SEED))
+        _, step = make_nvae_train_step(nvae, 6e-3, num_total_iter=100,
+                                       input_noise=TRAIN_INPUT_NOISE)
+
+        def call():
+            step({"image": images}, draws, 5)
+        grad_mode = contextlib.nullcontext()
+    else:
+        make = {"ids": flagship, "gender": gender_defense, "cars": cars_defense}[family]
+        defense = make(initial_noise_eps=eps, device=dev, seed=SEED)
+        if args.dtype == "bfloat16":
+            defense_astype(defense, torch.bfloat16)
+        net = eot_wrap(defense, eot_steps=32)
+
+        def call():
+            net(images, draws)
+        grad_mode = torch.no_grad()
+    with grad_mode:
+        call()
         torch.cuda.synchronize()
         t = time.monotonic()
         for _ in range(CALLS):
-            net(images, draws)
+            call()
         torch.cuda.synchronize()
         untraced_s = time.monotonic() - t
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.monotonic()
             for _ in range(CALLS):
-                net(images, draws)
+                call()
             torch.cuda.synchronize()
             wall_s = time.monotonic() - t
 
@@ -129,7 +156,8 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi.stdout.strip() or "not available",
         "family": family, "calls": CALLS, "batch": batch, "image_size": size,
-        "initial_noise_eps": eps, "eot_steps": 32, "dtype": args.dtype,
+        "initial_noise_eps": eps, "eot_steps": 32 if family != "nvae_train" else None,
+        "dtype": args.dtype,
         "wall_s": wall_s, "untraced_wall_s": untraced_s,
         "device_kernel_s": device_s if kernels else "not measured",
         "busy_share": device_s / untraced_s if kernels else "not measured",

@@ -10,8 +10,8 @@ EoT epoch over the adversarial set (search/alphas.AlphaEvaluator).
 
 A float32 Cholesky that fails gives NaN here as in JAX (`_cholesky`:
 `torch.linalg.cholesky_ex`, whose `info` is checked, in place of the
-raising `torch.linalg.cholesky`), and `fit_gp` stops at the last
-hyperparameters whose loss was finite.
+raising `torch.linalg.cholesky`), and `fit_gp` stops at the first
+hyperparameters whose loss is not finite, as the JAX `fit_gp` does.
 
 The search's own randomness is addressed by position: Bayesian step `s`
 draws its raw acquisition samples from a CPU generator seeded from
@@ -89,19 +89,20 @@ def _initial_params(x, y) -> dict:
 
 def fit_gp(x: torch.Tensor, y: torch.Tensor, steps: int = 200, lr: float = 0.05) -> dict:
     """Fit hyperparameters by maximizing the exact marginal likelihood with
-    Adam (torch's update is optax's: eps outside the square root). A step
-    whose loss is not finite ends the fit at the last hyperparameters whose
-    loss was (or the starting ones): a NaN fit would corrupt every later
-    proposal. Returns detached tensors."""
+    Adam (torch's update is optax's: eps outside the square root). The fit
+    stops at the first iterate whose loss is not finite and returns that
+    iterate, as the JAX `fit_gp` does (its jitted step returns the old
+    iterate's loss beside the new iterate, and on a non-finite loss it
+    returns the iterate that loss was found at): the fit goes no further
+    into NaN, and both packages then propose the same alphas. Returns
+    detached tensors."""
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in _initial_params(x, y).items()}
     opt = torch.optim.Adam(list(params.values()), lr=lr)
-    good = {k: v.detach().clone() for k, v in params.items()}
     for _ in range(steps):
         loss = neg_mll(params, x, y)
         if not torch.isfinite(loss):
-            return good
-        good = {k: v.detach().clone() for k, v in params.items()}
+            break
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()

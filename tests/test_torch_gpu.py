@@ -437,3 +437,70 @@ def test_small_bf16_defense_on_gpu_against_cpu():
     assert got.dtype == torch.float32
     gap = (cpu16 - want).abs().max().item()
     assert (got - want).abs().max().item() <= BF16_GAP_FACTOR * gap
+
+
+@pytest.mark.gpu
+def test_small_train_steps_on_gpu_match_cpu():
+    """One make_nvae_train_step step of a small NVAE (input noise, the same
+    draws) and one train_step of a small VGG (the same augmentation) on the
+    card and on the CPU from the same weights: the loss, the gradients and
+    the running statistics within 1e-4 relative; the trained NVAE's eval
+    decode then launches K1 once a decoder cell (the training step none)."""
+    _need_card()
+    from gen_adversarial_tpu_torch.core.init import flax_init_
+    from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+    from gen_adversarial_tpu_torch.models.nvae.model import NVAE
+    from gen_adversarial_tpu_torch.train import augment
+    from gen_adversarial_tpu_torch.train import classifier as train_clf
+    from gen_adversarial_tpu_torch.train import nvae as train_nvae
+
+    def rel(got, want):
+        return ((got.double().cpu() - want.double()).abs().max()
+                / want.double().abs().max().clamp(min=1e-12)).item()
+
+    gen = torch.Generator().manual_seed(3)
+    cfg = NVAEConfig(resolution=16, initial_channels=8, num_scales=2, num_groups_per_scale=2,
+                     is_adaptive=False, num_cells_per_group=1, num_latent_per_group=4,
+                     num_mixtures=3)
+    cpu = flax_init_(NVAE(cfg, device="cpu"), gen)
+    x = torch.rand((2, 16, 16, 3), generator=gen)
+    draws = [torch.randn((2, 16, 16, 3), generator=gen)]
+    draws += [torch.randn(s, generator=gen) for s in eps_shapes(cfg, 2)]
+    out = {}
+    for where, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+        _, step = train_nvae.make_nvae_train_step(model, 6e-3, 100, input_noise=0.03)
+        k1.reset_launches()
+        with torch.backends.mkldnn.flags(enabled=False):
+            loss = step({"image": x}, list(draws), 5)[0].item()
+        assert k1.launches == 0
+        out[where] = (loss, {n: p.grad for n, p in model.named_parameters()},
+                      {n: b for n, b in model.named_buffers() if b.is_floating_point()})
+    (want_loss, want_g, want_b), (got_loss, got_g, got_b) = out["cpu"], out["cuda"]
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    scale = max(g.abs().max().item() for g in want_g.values())
+    assert max((got_g[n].cpu() - want_g[n]).abs().max().item() for n in want_g) <= 1e-4 * scale
+    assert max(rel(got_b[n], want_b[n]) for n in want_b) <= 1e-4
+    gpu = copy.deepcopy(cpu).to("cuda").eval().requires_grad_(False)
+    k1.reset_launches()
+    with torch.no_grad():
+        gpu.reconstruct(x.cuda(), deterministic=True)
+    assert k1.launches == len(cfg.decoder_segment_shapes())
+
+    vgg = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"), gen)
+    batch = {"image": torch.rand((4, 16, 16, 3), generator=gen),
+             "label": torch.randint(0, 10, (4,), generator=gen)}
+    params = augment.draw_augment(gen, 4)
+
+    def fixed(images, generator):
+        out = augment.apply_augment(images, {k: v.to(images.device) for k, v in params.items()})
+        return (out - 0.5) / 0.5
+
+    for where, model in (("cpu", vgg), ("cuda", copy.deepcopy(vgg).to("cuda"))):
+        with torch.backends.mkldnn.flags(enabled=False):
+            loss = train_clf.train_step(train_clf.create_train_state(model, 0.01), batch,
+                                        None, augment=fixed).item()
+        out[where] = (loss, {k: v for k, v in model.state_dict().items()
+                             if v.is_floating_point()})
+    (want_loss, want), (got_loss, got) = out["cpu"], out["cuda"]
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    assert max(rel(got[k], want[k]) for k in want) <= 1e-4

@@ -220,13 +220,14 @@ def test_gp_matches_jax_and_the_float64_oracle():
 
 def test_a_failed_cholesky_gives_nan_and_the_fit_keeps_the_last_finite_step(monkeypatch):
     """cholesky_ex's failure is NaN, as JAX's float32 Cholesky; a fit whose
-    loss turns non-finite at step k returns the hyperparameters of step
-    k - 1, those of a fit of k - 1 steps."""
+    loss turns non-finite at its k-th evaluation (that of the iterate after
+    k - 1 steps) returns that iterate, the hyperparameters of a fit of
+    k - 1 steps, as the JAX fit_gp does."""
     chol = gp._cholesky(torch.tensor([[1.0, 2.0], [2.0, 1.0]]))
     assert torch.isnan(chol).all()
     x, y, _ = _gp_problem()
     tx, ty = torch.tensor(x), torch.tensor(y)
-    want = gp.fit_gp(tx, ty, steps=2)
+    want = gp.fit_gp(tx, ty, steps=3)
     real, calls = gp.neg_mll, {"n": 0}
 
     def failing(params, x, y):
@@ -239,6 +240,36 @@ def test_a_failed_cholesky_gives_nan_and_the_fit_keeps_the_last_finite_step(monk
     assert calls["n"] == 4
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nan_at", [1, 7])
+def test_fit_gp_after_a_non_finite_loss_matches_jax(nan_at, monkeypatch):
+    """Each package's neg_mll made NaN at its nan_at-th evaluation (JAX's
+    step run eagerly, so that its neg_mll is called once a step): both fits
+    stop there and return the same iterate, within 1e-5 relative."""
+    x, y, _ = _gp_problem()
+
+    def failing(real):
+        calls = {"n": 0}
+
+        def neg_mll(params, x, y):
+            calls["n"] += 1
+            loss = real(params, x, y)
+            return loss * float("nan") if calls["n"] == nan_at else loss
+        return neg_mll, calls
+
+    jax_neg_mll, jax_calls = failing(jax_gp.neg_mll)
+    port_neg_mll, port_calls = failing(gp.neg_mll)
+    monkeypatch.setattr(jax_gp, "neg_mll", jax_neg_mll)
+    monkeypatch.setattr(gp, "neg_mll", port_neg_mll)
+    monkeypatch.setattr(jax, "jit", lambda f, **kw: f)
+    want = jax_gp.fit_gp(jnp.asarray(x), jnp.asarray(y), steps=20)
+    got = gp.fit_gp(torch.tensor(x), torch.tensor(y), steps=20)
+    assert jax_calls["n"] == port_calls["n"] == nan_at
+    for k in ("raw_ls", "raw_os", "raw_noise", "mean"):
+        w = np.asarray(want[k], np.float64)
+        assert np.all(np.isfinite(w)), k
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-5, atol=0, err_msg=k)
 
 
 @pytest.fixture(scope="module")

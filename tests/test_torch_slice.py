@@ -275,6 +275,10 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "core/checkpoint.py", "data/png.py", "data/datasets.py", "eval/harness.py",
     "cli/test_defense.py",
     "search/alphas.py", "search/grid.py", "search/gp.py", "cli/alpha_search.py",
+    "models/batchnorm.py", "models/nvae/distributions.py", "models/nvae/regularization.py",
+    "core/init.py", "core/runlog.py", "core/torch_convert.py", "train/augment.py",
+    "train/classifier.py", "train/nvae.py", "cli/train_classifier.py", "cli/train_nvae.py",
+    "efficacy_run.py",
 ]
 
 

@@ -233,3 +233,27 @@ def patch_tiny_classifier(monkeypatch):
                         lambda t, n: JaxVGG(n_classes=n, plan=TINY_PLAN))
     monkeypatch.setattr(factory, "make_classifier",
                         lambda t, n, device: VGG11BN(n, plan=TINY_PLAN, device=device))
+
+
+@pytest.fixture(scope="module")
+def no_onednn():
+    """oneDNN off for a module's tests (restored after): its convolution
+    backward corrupted the heap ('double free or corruption', then an abort
+    or a segfault, at random) in NVAE training steps on torch 2.13's CPU
+    build; the plain CPU convolutions give the same results."""
+    with torch.backends.mkldnn.flags(enabled=False):
+        yield
+
+
+def grads_as_jax(module: torch.nn.Module) -> dict:
+    """The module's parameter gradients as its flax params tree (the flax
+    layouts of `to_jax_variables`; zeros where a parameter has none)."""
+    import copy
+
+    from gen_adversarial_tpu_torch.core.convert import to_jax_variables
+
+    twin = copy.deepcopy(module)
+    with torch.no_grad():
+        for p, g in zip(twin.parameters(), module.parameters()):
+            p.copy_(g.grad if g.grad is not None else torch.zeros_like(g))
+    return to_jax_variables(twin)["params"]
