@@ -67,7 +67,18 @@ with seconds a step and peak memory; the trained NVAE's eval
 reconstruct(deterministic=True) launches K1 50 times and sample runs; the
 NVAE written by save_variables and read back by load_variables reconstructs
 the same; and one step of a small NVAE and of a small VGG on the card
-agrees with the CPU's. Every phase prints one JSON line with its elapsed seconds;
+agrees with the CPU's. Then the competitors, which launch neither kernel:
+`competitors` writes random A-VAE and ND-VAE purifiers (flax's
+initializers, from a seed) and a ResNet50 and a ResNeXt50 as checkpoints,
+loads the six configs/competitor_{avae,ndvae}_{ids,gender,cars}.yaml copies
+(the ids ones with the harness's flagship VGG) through load_defense and
+times their EoT-32 forwards at each family's batch, a DeepFool step and a
+CE input gradient on the ids pair, the A-VAE refusing bfloat16 and the
+bfloat16 ND-VAE's agreement with float32, and a small A-VAE and ND-VAE on
+the card against the CPU; `train_competitors` times the A-VAE's WGAN-GP
+steps (batch 32, 64 px), the ND-VAE's cars128 recipe (batch 32) and
+TRADES on the flagship VGG11-BN (batch 64), and holds one step of each, at
+small sizes, on the card against the CPU. Every phase prints one JSON line with its elapsed seconds;
 the second-to-last line summarises the kernels (K1 and K2, each in float32
 and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -115,9 +126,12 @@ BLUR_PAD = (1, 1)  # the blur after a 3x3 up-convolution
 # the cars defense: batch 4 images x EoT-32, all 32 draws in one batch
 CARS_BATCH = 4
 CARS_EOT_CHUNK = None
-# K2's plain version and the library call are timed at fewer launches (each
-# is ~0.1-0.3 s at a 512- or 1024-px shape)
-K2_SLOW_REPS = 5
+# K2's plain version is timed at fewer launches, after one warm-up (each is
+# ~0.5 s at a 512- or 1024-px shape); the library calls that the kernels
+# line reports keep LIBRARY_REPS launches after 3 warm-ups, as they had
+# before the plain versions were cut
+K2_SLOW_REPS = 2
+LIBRARY_REPS = 5
 # the attacks, GPU vs CPU on a small defense (phase `attacks_parity`): a few
 # steps of each; bounds (relative) and adversarial images (absolute, in
 # [0, 1]) after steps that each take a float32 input gradient
@@ -131,7 +145,7 @@ ATTACK_COT_CHUNK = 4
 # APGD-CE on the full gender defense and one input gradient of the full
 # cars defense, remat on (phase `attack_remat`); the EoT draws in chunks of
 # 4, so that a backward recomputes one chunk's purify at a time
-REMAT_APGD_ITERS = 2
+REMAT_APGD_ITERS = 1
 REMAT_EOT_CHUNK = 4
 # the small gender defense's class gradients with remat on against off, on
 # cuDNN's deterministic algorithms: the recompute replays the same draws
@@ -139,10 +153,10 @@ REMAT_RTOL = 1e-5
 # bfloat16 kernel vs its bfloat16 plain version: both sum in float32 and
 # round y once, so they differ by one bfloat16 spacing at most (2**-7 of the
 # value), beside the float32 kernels' absolute tolerance (phase
-# `kernels_bf16`); the plain version and the library call timed at fewer
-# launches
+# `kernels_bf16`); the plain version timed at fewer launches, the library
+# call at LIBRARY_REPS
 BF16_KERNEL_RTOL = 2.0 ** -7
-BF16_SLOW_REPS = 5
+BF16_SLOW_REPS = 2
 # phase `harness`: the flagship's results.json over 6 images at batch 4 (one
 # full batch, one ragged batch of 2), DeepFool at ATTACK_DF_ITERS steps with
 # its cotangents in blocks of ATTACK_COT_CHUNK, C&W at HARNESS_CW_STEPS steps
@@ -176,6 +190,20 @@ TRAIN_NVAE_BATCH = 16
 TRAIN_CLF_BATCH = 64
 TRAIN_INPUT_NOISE = 0.03
 TRAIN_PARITY_RTOL = 1e-4
+# phase `competitors`: the six competitor configs from files at EoT-32, each
+# family at its batch, purifiers random from this seed; phase
+# `train_competitors`: the A-VAE's steps at the CLI's batch 32 (64 px), the
+# ND-VAE's cars128 recipe (batch 32) and TRADES on the flagship VGG11-BN at
+# TRAIN_CLF_BATCH with the ids recipe
+COMPETITOR_SEED = 21
+COMPETITOR_BATCH = {"ids": 4, "gender": 2, "cars": 4}
+# the ids ND-VAE's DeepFool step takes its class cotangents one at a time:
+# the forward keeps ~35 GB of activations (its 4096-wide post cell at 32 px
+# and 1024-wide one at 64 px, 2.1 GB a tensor over 128 images), and blocks
+# of 4 cotangents ran out of the card's 80 GB (no remat: eot_chunk would not
+# bound a backward's memory)
+COMPETITOR_DF_COT_CHUNK = {"avae": ATTACK_COT_CHUNK, "ndvae": 1}
+TRAIN_AVAE_BATCH = 32
 # the gender CE gradient under a remat_policy against policy None (phase
 # attack_remat): the same function, but cuDNN may run other algorithms,
 # and with random weights this gradient agrees only to ~1e-3 between them in
@@ -409,8 +437,8 @@ def main() -> int:
     def k2_rows(sites, n):
         """K2 against its plain version at each (C, H_in) of `sites` on a
         batch of n, timed with the plain version, the library call, a copy of
-        the same bytes and the bound; the plain version and the library call
-        at K2_SLOW_REPS launches."""
+        the same bytes and the bound; the plain version at K2_SLOW_REPS
+        launches, the library call at LIBRARY_REPS."""
         kf = torch.tensor(taps[::-1], device=dev)
         rows = []
         for c, h in sites:
@@ -427,11 +455,12 @@ def main() -> int:
                                    f"max abs err {err} > {K2_TOL * scale}")
             w2d = torch.outer(kf, kf).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
-            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), K2_SLOW_REPS)
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), K2_SLOW_REPS,
+                               warmup=1)
             # at pad (1, 1) one depthwise convolution with the 2-D taps is the
             # same function
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
-                                 K2_SLOW_REPS)
+                                 LIBRARY_REPS)
             copy = torch.empty_like(x)
             copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
             del copy
@@ -471,7 +500,7 @@ def main() -> int:
         del x, g, xk, xp
         torch.cuda.empty_cache()
         return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
-                "slow_reps": K2_SLOW_REPS, "shapes": rows,
+                "slow_reps": K2_SLOW_REPS, "library_reps": LIBRARY_REPS, "shapes": rows,
                 "backward": {"C": c, "H_in": h, "max_abs_err": bwd_err, "tol": bwd_tol,
                              "launches": backward_launches}}
 
@@ -565,7 +594,7 @@ def main() -> int:
 
     def kernels_k2_cars_phase():
         return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
-                "slow_reps": K2_SLOW_REPS,
+                "slow_reps": K2_SLOW_REPS, "library_reps": LIBRARY_REPS,
                 "shapes": k2_rows(k2_cars_sites, n_cars)}
 
     kernels2_cars = run_phase("kernels_k2_cars", kernels_k2_cars_phase)
@@ -1052,9 +1081,9 @@ def main() -> int:
             ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk, *aff))
             ms_bf16_weights = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk16, *aff16))
             plain_ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment_plain(x, wk, *aff),
-                               BF16_SLOW_REPS)
+                               BF16_SLOW_REPS, warmup=1)
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w, padding=2, groups=c),
-                                 BF16_SLOW_REPS)
+                                 LIBRARY_REPS)
             elements = x.numel()
             # bfloat16 x and y, float32 taps and affines; float32 arithmetic
             bytes_moved = 2 * elements * 2 + (25 + 4) * c * 4
@@ -1073,8 +1102,8 @@ def main() -> int:
     def k2_bf16_rows(sites, n_images):
         """K2's bfloat16 build at each (C, H_in) of `sites` on a batch of
         n_images: bit-identical to its plain version (both sum in float32 in
-        the same order and round once), timed with the plain version and
-        the library call at BF16_SLOW_REPS launches."""
+        the same order and round once), timed with the plain version at
+        BF16_SLOW_REPS launches and the library call at LIBRARY_REPS."""
         kf = torch.tensor(taps[::-1], device=dev)
         rows = []
         for c, h in sites:
@@ -1091,9 +1120,10 @@ def main() -> int:
                                    f"plain version at {mismatched} elements (max abs err {err})")
             w2d = torch.outer(kf, kf).to(bf16).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
-            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), BF16_SLOW_REPS)
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), BF16_SLOW_REPS,
+                               warmup=1)
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
-                                 BF16_SLOW_REPS)
+                                 LIBRARY_REPS)
             byte_ms = 1e3 * (x.numel() + y.numel()) * 2 / HBM_BYTES_PER_S
             op_ms = 1e3 * y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S
             rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_images,
@@ -1150,7 +1180,7 @@ def main() -> int:
         return cases
 
     def kernels_bf16_phase():
-        return {"dtype": "bfloat16", "slow_reps": BF16_SLOW_REPS,
+        return {"dtype": "bfloat16", "slow_reps": BF16_SLOW_REPS, "library_reps": LIBRARY_REPS,
                 "k1": {"kernel": "depthwise_silu_segment", "shapes": k1_bf16_rows()},
                 "k2": {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
                        "shapes": k2_bf16_rows(k2_sites, n_gender),
@@ -1713,6 +1743,60 @@ def main() -> int:
             raise RuntimeError("the alpha search did not go through K1")
         return out
 
+    # one step of a small model on the card and on the CPU, from the same
+    # weights and draws (phases train and train_competitors). Errors are relative to a
+    # scale that the noise of float32 sums cannot cross: gradients to the
+    # largest gradient; a parameter to its tensor's largest value, or,
+    # where that is not met, the gradient its step implies to the
+    # largest gradient (a bias before a training BatchNorm has a true
+    # gradient of 0, and Adamax's first step lr * G / (|G| + eps) turns
+    # the noise into a step of either sign); running statistics to the
+    # layer's running variance (a mean after a bias-free 1x1 of
+    # normalized inputs is 0 up to noise)
+    def step_errors(results, start, implied_grad):
+        (want_loss, want, want_g), (got_loss, got, got_g) = results["cpu"], results["cuda"]
+        scale = max(g.abs().max().item() for g in want_g.values())
+        params = 0.0
+        for k, g0 in want_g.items():
+            w, g, p0 = want[k].double(), got[k].double().cpu(), start[k].double()
+            rel_p = (g - w).abs() / w.abs().max().clamp(min=1e-12)
+            rel_g = (implied_grad(p0, g, k) - implied_grad(p0, w, k)).abs() / scale
+            params = max(params, torch.minimum(rel_p, rel_g).max().item())
+        stats = 0.0
+        for k in want:
+            if k.endswith("running_var"):
+                layer = k[:-len("running_var")]
+                var = want[k].double().abs().max().clamp(min=1e-12)
+                for name in ("running_mean", "running_var"):
+                    diff = got[layer + name].double().cpu() - want[layer + name].double()
+                    stats = max(stats, (diff.abs().max() / var).item())
+        return {"loss": abs(got_loss - want_loss) / abs(want_loss),
+                "grads": max(((got_g[n] - want_g[n]).abs().max() / scale).item()
+                             for n in want_g),
+                "params": params, "running_stats": stats}
+
+    def adamax_grad(p0, p, name=None, lr=6e-3, eps=1e-3):
+        # the gradient a first Adamax step implies: p = p0 - lr G / (|G| + eps)
+        a = torch.clamp((p0 - p) / lr, -0.999999, 0.999999)
+        return eps * a / (1 - a.abs())
+
+    def sgd_grad(p0, p, name=None, lr=0.01):
+        return (p0 - p) / lr  # a first SGD step: the momentum buffer is G
+
+    def one_step(models, step):
+        results = {}
+        for where, model in models.items():
+            # oneDNN's convolution backward corrupted the heap in NVAE
+            # training steps on torch 2.13's CPU build: the CPU steps go
+            # around it
+            with torch.backends.mkldnn.flags(enabled=False):
+                loss = step(where, model)
+            results[where] = (loss, {k: v.detach().cpu().clone()
+                                     for k, v in model.state_dict().items()},
+                              {n: p.grad.detach().cpu().clone()
+                               for n, p in model.named_parameters()})
+        return results
+
     def train_phase():
         # the trainers at full width: the flagship NVAE's make_nvae_train_step
         # and the flagship VGG11-BN's train_step, then the trained NVAE's
@@ -1819,60 +1903,6 @@ def main() -> int:
             raise RuntimeError(f"VGG training: losses {losses}")
         del clf, state, batch
 
-        # one step of a small NVAE and of a small VGG, on the card and on the
-        # CPU, from the same weights and draws. Errors are relative to a
-        # scale that the noise of float32 sums cannot cross: gradients to the
-        # largest gradient; a parameter to its tensor's largest value, or,
-        # where that is not met, the gradient its step implies to the
-        # largest gradient (a bias before a training BatchNorm has a true
-        # gradient of 0, and Adamax's first step lr * G / (|G| + eps) turns
-        # the noise into a step of either sign); running statistics to the
-        # layer's running variance (a mean after a bias-free 1x1 of
-        # normalized inputs is 0 up to noise)
-        def step_errors(results, start, implied_grad):
-            (want_loss, want, want_g), (got_loss, got, got_g) = results["cpu"], results["cuda"]
-            scale = max(g.abs().max().item() for g in want_g.values())
-            params = 0.0
-            for k, g0 in want_g.items():
-                w, g, p0 = want[k].double(), got[k].double().cpu(), start[k].double()
-                rel_p = (g - w).abs() / w.abs().max().clamp(min=1e-12)
-                rel_g = (implied_grad(p0, g) - implied_grad(p0, w)).abs() / scale
-                params = max(params, torch.minimum(rel_p, rel_g).max().item())
-            stats = 0.0
-            for k in want:
-                if k.endswith("running_var"):
-                    layer = k[:-len("running_var")]
-                    var = want[k].double().abs().max().clamp(min=1e-12)
-                    for name in ("running_mean", "running_var"):
-                        diff = got[layer + name].double().cpu() - want[layer + name].double()
-                        stats = max(stats, (diff.abs().max() / var).item())
-            return {"loss": abs(got_loss - want_loss) / abs(want_loss),
-                    "grads": max(((got_g[n] - want_g[n]).abs().max() / scale).item()
-                                 for n in want_g),
-                    "params": params, "running_stats": stats}
-
-        def adamax_grad(p0, p, lr=6e-3, eps=1e-3):
-            # the gradient a first Adamax step implies: p = p0 - lr G / (|G| + eps)
-            a = torch.clamp((p0 - p) / lr, -0.999999, 0.999999)
-            return eps * a / (1 - a.abs())
-
-        def sgd_grad(p0, p, lr=0.01):
-            return (p0 - p) / lr  # a first SGD step: the momentum buffer is G
-
-        def one_step(models, step):
-            results = {}
-            for where, model in models.items():
-                # oneDNN's convolution backward corrupted the heap in NVAE
-                # training steps on torch 2.13's CPU build: the CPU steps go
-                # around it
-                with torch.backends.mkldnn.flags(enabled=False):
-                    loss = step(where, model)
-                results[where] = (loss, {k: v.detach().cpu().clone()
-                                         for k, v in model.state_dict().items()},
-                                  {n: p.grad.detach().cpu().clone()
-                                   for n, p in model.named_parameters()})
-            return results
-
         cpu_gen = torch.Generator().manual_seed(TRAIN_SEED)
         small_cfg = NVAEConfig(resolution=16, initial_channels=8, n_pre_post_blocks=1,
                                n_pre_post_cells=2, num_scales=2, num_groups_per_scale=2,
@@ -1917,10 +1947,362 @@ def main() -> int:
         out["k1_launches"] = recon_launches + out["eval"]["sample_k1_launches"]
         return out
 
+    from gen_adversarial_tpu_torch.models.nvae.distributions import RecordingDraws
+
+    def competitors_phase():
+        # the six competitor configs at full width from files: the purifiers
+        # random from a seed (flax's initializers), the classifiers the
+        # harness's flagship VGG (ids) and a ResNet50 / ResNeXt50 (gender,
+        # cars), each config loaded by load_defense and run at EoT-32
+        import re
+
+        from gen_adversarial_tpu_torch.core.checkpoint import save_variables
+        from gen_adversarial_tpu_torch.core.config import (
+            IMAGE_SIZE as SIZES, N_CLASSES, DefenseConfig)
+        from gen_adversarial_tpu_torch.core.convert import to_jax_variables
+        from gen_adversarial_tpu_torch.core.init import flax_init_
+        from gen_adversarial_tpu_torch.core.precision import defense_astype
+        from gen_adversarial_tpu_torch.defenses.base import make_classifier_apply
+        from gen_adversarial_tpu_torch.defenses.competitors import AVaeDefense, NDVaeDefense
+        from gen_adversarial_tpu_torch.eval.factory import CLASSIFIER_TYPE, load_defense
+        from gen_adversarial_tpu_torch.models.avae.model import StyledGenerator
+        from gen_adversarial_tpu_torch.models.classifiers import VGG11BN, make_classifier
+        from gen_adversarial_tpu_torch.models.ndvae.model import DefenceNVAE
+
+        out = {"nvidia_smi": device_info["nvidia_smi"], "eot_steps": EOT_STEPS}
+        tmp = Path(scratch.name) / "competitors"
+        tmp.mkdir()
+        cgen = torch.Generator(device=dev).manual_seed(COMPETITOR_SEED)
+        clf_paths = {"ids": Path(scratch.name) / "vgg.msgpack"}  # phase harness's
+        for exp in ("gender", "cars"):
+            clf = flax_init_(make_classifier(CLASSIFIER_TYPE[exp], N_CLASSES[exp], device=dev),
+                             cgen)
+            clf_paths[exp] = tmp / f"{exp}_classifier.msgpack"
+            save_variables(clf_paths[exp], to_jax_variables(clf),
+                           {"model_type": CLASSIFIER_TYPE[exp]})
+            del clf
+
+        def purifier(kind, cfg, size):
+            if kind == "avae":
+                return StyledGenerator(size, device=dev)
+            return DefenceNVAE(x_channels=cfg.x_channels, encoding_channels=cfg.encoding_channels,
+                               pre_proc_groups=cfg.pre_proc_groups, scales=cfg.scales,
+                               groups=cfg.groups, cells=cfg.cells, input_dim=size, device=dev)
+
+        configs = {}
+        reset_counts()  # counts from here on are this path's
+        for kind in ("avae", "ndvae"):
+            for exp in ("ids", "gender", "cars"):
+                name = f"competitor_{kind}_{exp}"
+                size, batch = SIZES[exp], COMPETITOR_BATCH[exp]
+                text = (root / "configs" / f"{name}.yaml").read_text()
+                text = re.sub(r"^classifier_path: .*$", f"classifier_path: {clf_paths[exp]}",
+                              text, flags=re.M)
+                text = re.sub(r"^autoencoder_path: .*$",
+                              f"autoencoder_path: {tmp / (name + '.msgpack')}", text, flags=re.M)
+                config = tmp / f"{name}.yaml"
+                config.write_text(text)
+                cfg = DefenseConfig.from_yaml(config)
+                model = flax_init_(purifier(kind, cfg, size), cgen)
+                save_variables(tmp / f"{name}.msgpack", to_jax_variables(model))
+                n_params = sum(p.numel() for p in model.parameters())
+                del model
+                t = time.monotonic()
+                loaded = load_defense(str(config))
+                torch.cuda.synchronize()
+                load_s = time.monotonic() - t
+                images = torch.rand(batch, size, size, 3, device=dev, generator=cgen)
+                torch.cuda.reset_peak_memory_stats()
+                call_s = []
+                with torch.no_grad():
+                    for i in range(1 + TIMED_CALLS):
+                        torch.cuda.synchronize()
+                        t = time.monotonic()
+                        logits = loaded.net(images, torch.Generator(device=dev).manual_seed(i))
+                        torch.cuda.synchronize()
+                        call_s.append(time.monotonic() - t)
+                if tuple(logits.shape) != (batch, N_CLASSES[exp]) or \
+                        not torch.isfinite(logits).all():
+                    raise RuntimeError(f"{name}: logits {tuple(logits.shape)}, finite "
+                                       f"{bool(torch.isfinite(logits).all())}")
+                mean_s = sum(call_s[1:]) / TIMED_CALLS
+                out[name] = {"batch": batch, "image_size": size, "purifier_params": n_params,
+                             "load_defense_s": load_s, "call_s": call_s,
+                             "images_per_s": batch / mean_s,
+                             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+                configs[name] = (config, loaded, images)
+
+        # the ids pair under the attacks: a DeepFool step (the suite's 8
+        # class cotangents in blocks of ATTACK_COT_CHUNK) and an APGD-CE
+        # input gradient, through EoT-32
+        s = ATTACK_SUITES["ids"]
+        for kind in ("avae", "ndvae"):
+            name = f"competitor_{kind}_ids"
+            _, loaded, images = configs[name]
+            chunk = COMPETITOR_DF_COT_CHUNK[kind]
+            with torch.no_grad():
+                labels = loaded.net(images, torch.Generator(device=dev).manual_seed(5)).argmax(1)
+            res, sec, peak = timed(lambda: attacks.deepfool_attack(
+                loaded.net, images, labels, torch.Generator(device=dev).manual_seed(7),
+                num_classes=s.deepfool_num_classes, overshoot=s.deepfool_overshoot, max_iter=1,
+                return_iters=True, cotangent_chunk=chunk))
+            out[name]["deepfool_step"] = {**check_attack(name + " deepfool", res, len(images)),
+                                          "seconds": sec, "max_memory_allocated_gb": peak,
+                                          "cotangent_chunk": chunk, "eot_chunk": None}
+
+            def ce_grad():  # what an APGD-CE step takes
+                x = images.clone().requires_grad_(True)
+                logits = loaded.net(x, torch.Generator(device=dev).manual_seed(8))
+                return torch.autograd.grad(F.cross_entropy(logits, labels), x)[0]
+
+            grad, sec, peak = timed(ce_grad)
+            if not torch.isfinite(grad).all() or grad.abs().max() == 0:
+                raise RuntimeError(f"{name}: the CE input gradient is not finite or is 0")
+            out[name]["apgd_ce_gradient"] = {"seconds": sec, "max_memory_allocated_gb": peak,
+                                             "eot_chunk": None}
+        out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+        if k1.launches or k2.launches:
+            raise RuntimeError(f"the competitors launched K1 {k1.launches}, K2 {k2.launches} "
+                               "times: neither has a Pallas kernel")
+
+        # bfloat16: the A-VAE raises (as the JAX package's does once its
+        # weights are traced); the ND-VAE computes in float32 on weights
+        # rounded to bfloat16 (defenses/competitors.py), so its logits move
+        # from the float32 ones
+        try:
+            load_defense(str(configs["competitor_avae_ids"][0]), dtype="bfloat16")
+        except TypeError as e:
+            out["avae_bfloat16"] = f"raises TypeError: {e}"
+        else:
+            raise RuntimeError("the A-VAE loaded in bfloat16")
+        _, loaded, images = configs["competitor_ndvae_ids"]
+        cast = defense_astype(copy.deepcopy(loaded.defense), torch.bfloat16)
+        with torch.no_grad():
+            want = loaded.net(images, torch.Generator(device=dev).manual_seed(9))
+            got = eot_wrap(cast, EOT_STEPS)(images, torch.Generator(device=dev).manual_seed(9))
+        out["ndvae_bfloat16"] = {
+            "argmax_agreement": (got.argmax(1) == want.argmax(1)).float().mean().item(),
+            "max_abs_dlogit": (got - want).abs().max().item(), "logits_dtype": str(got.dtype),
+            "finite": bool(torch.isfinite(got).all())}
+        if (not out["ndvae_bfloat16"]["finite"] or got.dtype != torch.float32
+                or out["ndvae_bfloat16"]["max_abs_dlogit"] == 0):
+            raise RuntimeError(f"the bfloat16 ND-VAE (its logits must move from float32's): "
+                               f"{out['ndvae_bfloat16']}")
+        del configs, loaded, cast
+        torch.cuda.empty_cache()
+
+        # a small A-VAE (64 px, its smallest; batch 1, EoT 2) and a small
+        # ND-VAE, on the card and on the CPU from the same weights and draws
+        cpu_gen = torch.Generator().manual_seed(COMPETITOR_SEED)
+        clf = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"), cpu_gen)
+        small = {
+            "avae": AVaeDefense(flax_init_(StyledGenerator(64, device="cpu"), cpu_gen), clf,
+                                make_classifier_apply(clf), 2),
+            "ndvae": NDVaeDefense(flax_init_(DefenceNVAE(encoding_channels=8, scales=2,
+                                                         groups=1, cells=2, input_dim=64,
+                                                         device="cpu"), cpu_gen),
+                                  clf, make_classifier_apply(clf), 0.1)}
+        errors = {}
+        for kind, defense in small.items():
+            x = torch.rand(1, 64, 64, 3, generator=cpu_gen)
+            rec = RecordingDraws(cpu_gen)
+            with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
+                want = eot_wrap(defense, 2)(x, rec)
+                got = eot_wrap(copy.deepcopy(defense).to(dev), 2)(x.to(dev), list(rec.record))
+            errors[kind] = rel_err(got.cpu(), want)
+        out["small_gpu_vs_cpu"] = {**errors, "tol": PARITY_RTOL}
+        if not all(math.isfinite(e) and e <= PARITY_RTOL for e in errors.values()):
+            raise RuntimeError(f"small competitors on the card differ from the CPU: {errors}")
+        return out
+
+    def train_competitors_phase():
+        # the three competitor trainers at full width, 1 warm-up and
+        # TRAIN_STEPS timed steps each, then one step of small models on the
+        # card against the CPU
+        from gen_adversarial_tpu_torch.core.init import flax_init_
+        from gen_adversarial_tpu_torch.models.avae.model import leaky_relu_branches
+        from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+        from gen_adversarial_tpu_torch.models.ndvae.model import DefenceNVAE
+        from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
+        from gen_adversarial_tpu_torch.train import avae as train_avae
+        from gen_adversarial_tpu_torch.train import classifier as train_clf
+        from gen_adversarial_tpu_torch.train import ndvae as train_ndvae
+        from gen_adversarial_tpu_torch.train import trades as train_trades
+
+        out = {"nvidia_smi": device_info["nvidia_smi"]}
+        tgen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        reset_counts()
+
+        def timed_steps(step, n=TRAIN_STEPS):
+            """(losses, seconds of each call, peak GiB) of 1 + n calls of step(i)."""
+            losses, seconds = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(1 + n):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                loss = step(i)
+                torch.cuda.synchronize()
+                seconds.append(time.monotonic() - t)
+                losses.append(float(loss))
+            return losses, seconds, torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def moved(model, before):
+            after = model.state_dict()
+            return sum(not torch.equal(after[k], before[k]) for k in after
+                       if after[k].is_floating_point())
+
+        def record(name, model, before, losses, seconds, peak, batch, **extra):
+            out[name] = {"batch": batch, "losses": losses, "step_s": seconds,
+                         "s_per_step": sum(seconds[1:]) / TRAIN_STEPS, "peak_gib": peak,
+                         "tensors_changed": moved(model, before), **extra}
+            if not all(math.isfinite(v) for v in losses) or not out[name]["tensors_changed"]:
+                raise RuntimeError(f"{name} training: {out[name]}")
+
+        # the A-VAE at 64 px, batch 32 (the CLI's defaults): d_step, g_step
+        # and accumulate a step
+        t = train_avae.make_avae_trainers(64, 2, 1e-3, device=dev)
+        t.init(tgen)
+        ema = copy.deepcopy(t.gen).requires_grad_(False)
+        both = torch.nn.ModuleDict({"gen": t.gen, "disc": t.disc})
+        before = {k: v.clone() for k, v in both.state_dict().items()}
+        real = torch.rand(TRAIN_AVAE_BATCH, 3, 64, 64, device=dev, generator=tgen) * 2 - 1
+
+        def avae_step(i):
+            wgan, gp = t.d_step(real, position_generator(dev, TRAIN_SEED, i, 0))
+            rec, kl = t.g_step(real, position_generator(dev, TRAIN_SEED, i, 1))
+            t.accumulate(ema)
+            return wgan + gp + rec + kl
+
+        record("avae", both, before, *timed_steps(avae_step), TRAIN_AVAE_BATCH)
+        del t, ema, both, before, real
+
+        # the ND-VAE on the cars128 recipe (128 px, batch 32)
+        r = train_ndvae.NDVAE_RECIPES["cars128"]
+        model = flax_init_(DefenceNVAE(input_dim=r["image_size"], **r["params"], device=dev), tgen)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        size = r["image_size"]
+        clean = torch.rand(r["batch_size"], size, size, 3, device=dev, generator=tgen)
+        adv = torch.clamp(clean + 0.05 * torch.randn(clean.shape, device=dev, generator=tgen),
+                          0, 1)
+        _, nd_step = train_ndvae.make_ndvae_train_step(model, r["lr"], num_total_iter=100)
+        record("ndvae_cars128", model, before, *timed_steps(lambda i: nd_step(
+            {"x_adv": adv, "x_orig": clean}, position_generator(dev, TRAIN_SEED, i), i)[0]),
+            r["batch_size"])
+        del model, before, clean, adv
+
+        # TRADES on the flagship VGG11-BN at batch 64, the ids recipe
+        recipe = train_trades.TRADES_RECIPES["ids"]
+        clf = flax_init_(VGG11BN(100, device=dev), tgen).to(memory_format=torch.channels_last)
+        before = {k: v.clone() for k, v in clf.state_dict().items()}
+        state = train_clf.create_train_state(clf, 0.01)
+        batch = {"image": torch.rand(TRAIN_CLF_BATCH, 64, 64, 3, device=dev, generator=tgen),
+                 "label": torch.randint(0, 100, (TRAIN_CLF_BATCH,), device=dev, generator=tgen)}
+        trades_step = train_trades.make_trades_train_step(recipe["beta"], recipe["epsilon"])
+        record("trades_ids", clf, before, *timed_steps(lambda i: trades_step(
+            state, batch, position_generator(dev, TRAIN_SEED, i))), TRAIN_CLF_BATCH,
+            perturb_steps=train_trades.TRADES_PERTURB_STEPS, **recipe)
+        del clf, state, batch, before
+        torch.cuda.empty_cache()
+        out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
+
+        # one step of the A-VAE (64 px, batch 1), a small ND-VAE and a small
+        # VGG on the card against the CPU (step_errors' scales). The A-VAE's
+        # Adam (eps 1e-8) and the ND-VAE's Adamax are held by the gradient
+        # their first step implies. The A-VAE steps in float32 on the card
+        # and in float64 on the CPU, whose leaky ReLUs take the card's
+        # branches (leaky_relu_branches): where a leaky ReLU's input lies
+        # within rounding of 0 the two precisions take different slopes,
+        # which put a float32 step's gradients up to 3.1e-2 (relative) from
+        # the float64 step's on the CPU, and on the float32 run's branches
+        # 2.4e-5 (tests/torch_avae_branch_sweep.py, 12 seeds).
+        # TRADES runs in float64 on both: its inner loop starts from a
+        # 0.001 x N(0, 1) perturbation, where the KL is ~1e-8, below
+        # float32's resolution of its O(1) terms, so its first direction is
+        # rounding noise in float32
+        cpu_gen = torch.Generator().manual_seed(TRAIN_SEED)
+
+        def adam_grad(p0, p, name, lr=1e-3):
+            return adamax_grad(p0, p, lr=lr * (train_avae.STYLE_LR_MUL if
+                                               name.startswith("gen.style_layers") else 1.0),
+                               eps=1e-8)
+
+        # the card's step first: the CPU's replays its draws and branches
+        trainers = {"cuda": train_avae.make_avae_trainers(64, 2, 1e-3, device=dev),
+                    "cpu": train_avae.make_avae_trainers(64, 2, 1e-3, device="cpu")}
+        trainers["cpu"].init(cpu_gen)
+        trainers["cuda"].gen.load_state_dict(trainers["cpu"].gen.state_dict())
+        trainers["cuda"].disc.load_state_dict(trainers["cpu"].disc.state_dict())
+        trainers["cpu"].gen.double()
+        trainers["cpu"].disc.double()
+        start = {k: v.clone() for k, v in torch.nn.ModuleDict(
+            {"gen": trainers["cpu"].gen, "disc": trainers["cpu"].disc}).state_dict().items()}
+        x = torch.rand(1, 3, 64, 64, generator=cpu_gen) * 2 - 1
+        card_gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        d_rec, g_rec = RecordingDraws(card_gen), RecordingDraws(card_gen)
+        masks, changed = [], []
+
+        def avae_one(where, model):
+            tr, on_card = trainers[where], where == "cuda"
+            real = x.to(dev) if on_card else x.double()
+            with leaky_relu_branches(None if on_card else masks) as taken:
+                wgan, gp = tr.d_step(real, d_rec if on_card else list(d_rec.record))
+                rec, kl = tr.g_step(real, g_rec if on_card else list(g_rec.record))
+            (masks if on_card else changed).extend(taken)
+            return (wgan + gp + rec + kl).item()
+
+        avae_err = step_errors(one_step({w: torch.nn.ModuleDict({"gen": tr.gen, "disc": tr.disc})
+                                         for w, tr in trainers.items()}, avae_one),
+                               start, adam_grad)
+        avae_err["branches_changed"] = int(sum(n.item() for n in changed))
+        del trainers
+
+        nd_kwargs = dict(encoding_channels=8, scales=2, groups=1, cells=2, input_dim=32)
+        cpu_nd = flax_init_(DefenceNVAE(**nd_kwargs, device="cpu"), cpu_gen)
+        start = {k: v.clone() for k, v in cpu_nd.state_dict().items()}
+        nds = {"cpu": cpu_nd, "cuda": copy.deepcopy(cpu_nd).to(dev)}
+        pair = {"x_adv": torch.rand(2, 32, 32, 3, generator=cpu_gen),
+                "x_orig": torch.rand(2, 32, 32, 3, generator=cpu_gen)}
+        nd_rec = RecordingDraws(cpu_gen)
+
+        def nd_one(where, model):
+            _, step = train_ndvae.make_ndvae_train_step(model, 1e-2, num_total_iter=100)
+            return step(pair, nd_rec if where == "cpu" else list(nd_rec.record), 5)[0].item()
+
+        nd_err = step_errors(one_step(nds, nd_one), start,
+                             lambda p0, p, name: adamax_grad(p0, p, lr=1e-2))
+        del nds, cpu_nd
+
+        cpu_vgg = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"),
+                             cpu_gen).double()
+        start = {k: v.clone() for k, v in cpu_vgg.state_dict().items()}
+        vggs = {"cpu": cpu_vgg, "cuda": copy.deepcopy(cpu_vgg).to(dev)}
+        tbatch = {"image": torch.rand(4, 16, 16, 3, generator=cpu_gen, dtype=torch.float64),
+                  "label": torch.randint(0, 10, (4,), generator=cpu_gen)}
+        t_rec = RecordingDraws(cpu_gen)
+
+        def trades_one(where, model):
+            st = train_clf.create_train_state(model, 0.01)
+            step = train_trades.make_trades_train_step(1.0, 2.0, perturb_steps=4)
+            return step(st, tbatch, t_rec if where == "cpu" else list(t_rec.record)).item()
+
+        trades_err = step_errors(one_step(vggs, trades_one), start, sgd_grad)
+        out["gpu_vs_cpu"] = {"avae_f32_vs_f64": avae_err, "ndvae": nd_err,
+                             "trades_float64": trades_err, "tol": TRAIN_PARITY_RTOL}
+        errors = ([e for k, e in avae_err.items() if k != "branches_changed"]
+                  + list(nd_err.values()) + list(trades_err.values()))
+        if not all(math.isfinite(e) and e <= TRAIN_PARITY_RTOL for e in errors):
+            raise RuntimeError(f"a competitor train step on the card differs from the CPU's: "
+                               f"{out['gpu_vs_cpu']}")
+        return out
+
     try:
         harness = run_phase("harness", harness_phase)
         alpha = run_phase("alpha_search", alpha_search_phase)
         train = run_phase("train", train_phase)
+        torch.cuda.empty_cache()
+        competitors = run_phase("competitors", competitors_phase)
+        torch.cuda.empty_cache()
+        train_competitors = run_phase("train_competitors", train_competitors_phase)
     finally:
         shared.clear()
         scratch.cleanup()

@@ -18,12 +18,15 @@ the mapping with `np.frombuffer`, so nothing is copied until a chunked array
 is joined or a caller converts. A `bfloat16` leaf (numpy has no such dtype)
 comes back as a `torch.bfloat16` tensor over the same bytes.
 
-A trainer's periodic state (`save_train_state`, `load_train_state`,
-`latest_step`; the classifier trainer's resume points) is a directory
-`step_NNNNNNNN/` holding `train_state.msgpack`: the model's flax variable
-tree (`params`, `batch_stats`, as `save_variables` writes them), the SGD
-momentum buffers under `momentum` (keyed by the port's parameter names, in
-the port's layout) and the `step`. The JAX package writes the same
+A trainer's periodic state (`save_state`, `load_state`, `latest_step`) is
+a directory `step_NNNNNNNN/` holding `train_state.msgpack`: the trainer's
+name under `trainer` (`load_state` refuses another trainer's) and its tree
+of arrays and numbers. The classifier trainer's (`save_train_state`,
+`load_train_state`) holds the model's flax variable tree (`params`,
+`batch_stats`, as `save_variables` writes them), the SGD state under
+`optimizer` and the `step`; the A-VAE trainer's its models, optimizers and
+position. `optimizer_tree` keys an optimizer's state by the port's
+parameter names, in the port's layout. The JAX package writes the same
 directory names with orbax (which the GPU machine does not have), so
 `latest_step` finds either package's, but the two packages' train states do
 not read each other's. Their `save_variables` files do.
@@ -330,32 +333,62 @@ def _step_dir(ckpt_dir: str | Path, step: int) -> Path:
     return Path(ckpt_dir) / f"step_{step:08d}"
 
 
+def save_state(ckpt_dir: str | Path, step: int, trainer: str, tree: dict) -> None:
+    """A trainer's whole state, a tree of arrays and numbers, as
+    `ckpt_dir/step_NNNNNNNN/train_state.msgpack`, under the trainer's name."""
+    d = _step_dir(ckpt_dir, step)
+    d.mkdir(parents=True, exist_ok=True)
+    msgpack_write(d / TRAIN_STATE_FILE, {"trainer": trainer, **tree})
+
+
+def load_state(ckpt_dir: str | Path, step: int, trainer: str) -> dict:
+    """The tree `save_state` wrote at `step`; a ValueError where another
+    trainer wrote it."""
+    path = _step_dir(ckpt_dir, step) / TRAIN_STATE_FILE
+    tree = msgpack_restore(path)
+    if tree.get("trainer") != trainer:
+        raise ValueError(f"{path} holds the {tree.get('trainer')!r} trainer's state, "
+                         f"not the {trainer!r} trainer's")
+    return tree
+
+
+def optimizer_tree(optimizer: torch.optim.Optimizer, module: torch.nn.Module) -> dict:
+    """An optimizer's per-parameter state as {parameter name: {key: array}},
+    the names `module`'s (SGD's momentum_buffer; Adam's step, exp_avg and
+    exp_avg_sq)."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    return {names[id(p)]: {k: v.detach().cpu().numpy() for k, v in state.items()}
+            for p, state in optimizer.state.items() if id(p) in names}
+
+
+def load_optimizer_tree(optimizer: torch.optim.Optimizer, module: torch.nn.Module,
+                        tree: dict) -> None:
+    """`optimizer_tree`'s inverse, in place: each tensor on its parameter's
+    device in its dtype, except a `step` count, which stays on the CPU as
+    torch's optimizers keep it."""
+    params = dict(module.named_parameters())
+    for name, state in tree.items():
+        p = params[name]
+        optimizer.state[p] = {
+            k: torch.tensor(np.array(v)) if k == "step" else torch.tensor(np.array(v)).to(p)
+            for k, v in state.items()}
+
+
 def save_train_state(ckpt_dir: str | Path, state, step: int) -> None:
     """`state` (a `train/classifier.TrainState`: model, SGD optimizer, step)
     into `ckpt_dir/step_NNNNNNNN/`."""
-    names = {id(p): n for n, p in state.model.named_parameters()}
-    momentum = {}
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
-            if buf is not None:
-                momentum[names[id(p)]] = buf.detach().cpu().numpy()
-    d = _step_dir(ckpt_dir, step)
-    d.mkdir(parents=True, exist_ok=True)
-    msgpack_write(d / TRAIN_STATE_FILE, {**to_jax_variables(state.model),
-                                         "momentum": momentum, "step": int(state.step)})
+    save_state(ckpt_dir, step, "classifier", {
+        **to_jax_variables(state.model),
+        "optimizer": optimizer_tree(state.optimizer, state.model), "step": int(state.step)})
 
 
 def load_train_state(ckpt_dir: str | Path, step: int, target):
     """The state saved at `step` loaded into `target` (a TrainState of the
     same model and optimizer) in place; returns it."""
-    tree = msgpack_restore(_step_dir(ckpt_dir, step) / TRAIN_STATE_FILE)
+    tree = load_state(ckpt_dir, step, "classifier")
     from_jax_variables({k: tree[k] for k in ("params", "batch_stats") if k in tree},
                        target.model)
-    params = dict(target.model.named_parameters())
-    for name, buf in tree["momentum"].items():
-        p = params[name]
-        target.optimizer.state[p]["momentum_buffer"] = torch.tensor(np.array(buf)).to(p)
+    load_optimizer_tree(target.optimizer, target.model, tree["optimizer"])
     target.step = int(tree["step"])
     return target
 

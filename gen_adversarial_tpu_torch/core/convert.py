@@ -28,7 +28,17 @@ ModuleList attribute `convs`. Layouts change as flax -> torch needs:
   `in_proj_bias`, `out_proj_weight` (D, D) and `out_proj_bias` are already in
   torch's (out, in) layout and keep it (no Dense transpose), as do the
   learned query `GradualStyleEncoder.z` (1, n_styles, 512) and
-  `StyleTransformer.latent_avg` (n_styles, 512; collection `buffers`).
+  `StyleTransformer.latent_avg` (n_styles, 512; collection `buffers`);
+- A-VAE (models/avae/model.py): the equalized `weight` leaves of
+  `AEqualConv2d` and `FusedDownsample` HWIO -> OIHW, of `FusedUpsample`
+  (k, k, I, O) -> (I, O, k, k) (`conv_transpose2d`'s layout), of
+  `AEqualLinear` (in, out) -> (out, in), `ANoiseInjection.weight`
+  (1, 1, 1, C) -> (1, C, 1, 1), `StyledConvBlock.const_input` NHWC -> NCHW.
+  These rules go by the owning module's class, so they never meet
+  StyleGAN2's leaves of the same names;
+- ND-VAE (models/ndvae/model.py): flax Conv, Dense and BatchNorm leaves as
+  above (its depthwise `dw` (5, 5, 1, E) -> (E, 1, 5, 5), with its bias),
+  and the decoder constant `h` NHWC -> NCHW.
 
 Every parameter and buffer of the module must be set exactly once, with the
 exact shape, or a ValueError says which one is wrong. A leaf may also be a
@@ -100,12 +110,21 @@ def _nchw_to_nhwc(a):
     return _permute(a, 0, 2, 3, 1)
 
 
+def _hwio_to_iohw(a):
+    return _permute(a, 2, 3, 0, 1)
+
+
+def _iohw_to_hwio(a):
+    return _permute(a, 2, 3, 0, 1)
+
+
 def _same(a):
     return a
 
 
 # each layout change of the flax -> torch direction and its inverse
-_INVERSE = {_same: _same, _t: _t, _hwio_to_oihw: _oihw_to_hwio, _nhwc_to_nchw: _nchw_to_nhwc}
+_INVERSE = {_same: _same, _t: _t, _hwio_to_oihw: _oihw_to_hwio, _nhwc_to_nchw: _nchw_to_nhwc,
+            _hwio_to_iohw: _iohw_to_hwio}
 
 
 # leaves of the port's own modules, by (class name, flax leaf name)
@@ -125,33 +144,44 @@ _MODULE_LEAVES = {
     ("TorchMHA", "out_proj_bias"): _same,
     ("GradualStyleEncoder", "z"): _same,
     ("StyleTransformer", "latent_avg"): _same,
+    ("AEqualConv2d", "weight"): _hwio_to_oihw,
+    ("AEqualConv2d", "bias"): _same,
+    ("FusedDownsample", "weight"): _hwio_to_oihw,
+    ("FusedDownsample", "bias"): _same,
+    ("FusedUpsample", "weight"): _hwio_to_iohw,
+    ("FusedUpsample", "bias"): _same,
+    ("AEqualLinear", "weight"): _t,
+    ("AEqualLinear", "bias"): _same,
+    ("ANoiseInjection", "weight"): _nhwc_to_nchw,
+    ("StyledConvBlock", "const_input"): _nhwc_to_nchw,
+    ("DefenceNVAE", "h"): _nhwc_to_nchw,
 }
 
 
-def _target(module: nn.Module, collection: str, names: tuple, leaf: str, arr: np.ndarray):
-    """(owning torch module, attribute name, array in torch layout)."""
+def _target(module: nn.Module, collection: str, names: tuple, leaf: str):
+    """(owning torch module, attribute name, flax -> torch layout change)."""
     owner = module
     for name in names:
         owner = _child(owner, name)
     if isinstance(owner, nn.modules.batchnorm._BatchNorm):
-        return owner, _BN_LEAVES[leaf], arr
+        return owner, _BN_LEAVES[leaf], _same
     if isinstance(owner, nn.LayerNorm):
-        return owner, _LN_LEAVES[leaf], arr
+        return owner, _LN_LEAVES[leaf], _same
     if isinstance(owner, nn.Conv2d):
         if leaf == "kernel":
-            return owner, "weight", _hwio_to_oihw(arr)
-        return owner, leaf, arr
+            return owner, "weight", _hwio_to_oihw
+        return owner, leaf, _same
     if isinstance(owner, nn.Linear):
         if leaf == "kernel":
-            return owner, "weight", _t(arr)
-        return owner, leaf, arr
+            return owner, "weight", _t
+        return owner, leaf, _same
     if leaf == "const_prior":
-        return owner, leaf, _nhwc_to_nchw(arr)
+        return owner, leaf, _nhwc_to_nchw
     if collection == "noise" and type(owner).__name__ == "Generator":
-        return owner, leaf, _nhwc_to_nchw(arr)
+        return owner, leaf, _nhwc_to_nchw
     rule = _MODULE_LEAVES.get((type(owner).__name__, leaf))
     if rule is not None:
-        return owner, leaf, rule(arr)
+        return owner, leaf, rule
     raise ValueError(f"no rule for flax leaf {'/'.join(names + (leaf,))} "
                      f"on {type(owner).__name__}")
 
@@ -162,17 +192,22 @@ def from_jax_variables(variables: Mapping, module: nn.Module) -> nn.Module:
     done = {}
     for collection in ("params", "batch_stats", "noise", "buffers"):
         for path, arr in _leaves(variables.get(collection, {})):
-            owner, attr, value = _target(module, collection, path[:-1], path[-1], arr)
-            dest = getattr(owner, attr)
-            if tuple(dest.shape) != tuple(value.shape):
+            owner, attr, layout = _target(module, collection, path[:-1], path[-1])
+            dest = getattr(owner, attr, None)
+            if not isinstance(dest, torch.Tensor):
+                raise ValueError(f"flax leaf {collection}/{'/'.join(path)}: "
+                                 f"{type(owner).__name__} has no tensor {attr!r}")
+            src = arr if isinstance(arr, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(arr))
+            if tuple(dest.shape) != tuple(layout(src).shape):
                 raise ValueError(f"{'/'.join(path)}: flax {tuple(arr.shape)} -> torch "
-                                 f"{tuple(value.shape)}, module has {tuple(dest.shape)}")
+                                 f"{tuple(layout(src).shape)}, module has {tuple(dest.shape)}")
             if id(dest) in done:
                 raise ValueError(f"{collection}/{'/'.join(path)} sets the tensor that "
                                  f"{done[id(dest)]} already set")
-            if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(np.ascontiguousarray(value))
-            dest.copy_(value)
+            # moved as stored, then transposed where the module lives (on the
+            # card, not in a host copy of a large matrix)
+            dest.copy_(layout(src.to(dest.device)))
             done[id(dest)] = f"{collection}/{'/'.join(path)}"
     missing = [name for name, t in list(module.named_parameters())
                + list(module.named_buffers())

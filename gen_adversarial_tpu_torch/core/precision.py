@@ -59,7 +59,15 @@ def defense_astype(defense: nn.Module, dtype: torch.dtype = torch.bfloat16) -> n
     has one (`MLVGMDefense`, `ClassifierDefense`), `compute_dtype` set; in
     place. A defense that computes in float32 whatever its weights
     (`weights_only_cast`: the noise and blur ablations) gets its weights
-    rounded to `dtype` and kept in float32 (`round_floating`)."""
+    rounded to `dtype` and kept in float32 (`round_floating`); so does the
+    ND-VAE competitor, whose flax layers the JAX package runs in float32 on
+    float32 inputs (but for its BatchNorms' coefficients, which flax
+    computes in bfloat16: defenses/competitors.py). A defense that the JAX package cannot run in `dtype` at
+    all (the A-VAE) names why in `cast_error`, and the cast raises it as a
+    TypeError."""
+    cast_error = getattr(defense, "cast_error", None)
+    if cast_error is not None and dtype != torch.float32:
+        raise TypeError(cast_error)
     if getattr(defense, "weights_only_cast", False):
         return round_floating(defense, dtype)
     cast_floating(defense, dtype)

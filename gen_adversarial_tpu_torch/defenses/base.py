@@ -51,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import (
     checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
-from gen_adversarial_tpu_torch.models.nvae.distributions import Draws, as_draws
+from gen_adversarial_tpu_torch.models.nvae.distributions import Draws, RecordingDraws, as_draws
 from gen_adversarial_tpu_torch.ops.blur import gaussian_blur2d
 from gen_adversarial_tpu_torch.ops.image import clamp01
 
@@ -97,18 +97,6 @@ def add_l2_gaussian_noise(x: torch.Tensor, eps: float, draws: Draws) -> torch.Te
     return clamp01(x + noise * (eps / norm))
 
 
-class _RecordingDraws(Draws):
-    """Draws from `inner`, each appended to `record` as it is made."""
-
-    def __init__(self, inner: Draws, record: list):
-        self.inner, self.record = inner, record
-
-    def normal(self, shape, like):
-        eps = self.inner.normal(shape, like)
-        self.record.append(eps)
-        return eps
-
-
 def _remat_call(fn: Callable, draws: Draws | None, *args, policy: str | None = None):
     """fn(*args, draws) with nothing of it saved for the backward, which
     runs it again (torch.utils.checkpoint, non-reentrant), or, under a
@@ -129,7 +117,7 @@ def _remat_call(fn: Callable, draws: Draws | None, *args, policy: str | None = N
         runs += 1
         if draws is None:
             return fn(*a, None)
-        return fn(*a, _RecordingDraws(draws, record) if runs == 1 else Draws(record))
+        return fn(*a, RecordingDraws(draws, record) if runs == 1 else Draws(record))
 
     if policy is not None and _SEVERAL_BACKWARDS.get():
         warnings.warn(f"remat_policy {policy!r} dropped for a forward that is differentiated "

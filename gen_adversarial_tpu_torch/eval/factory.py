@@ -8,8 +8,8 @@ at flax msgpack files (`core/checkpoint.py`), which load into the port's
 modules through `core/convert.from_jax_variables`. Modules are built on the
 meta device and filled on the target device, so nothing weight-sized is
 made twice on the host. The model constructors are module-level names
-(`make_classifier`, `NVAE`, `PSP`, `StyleTransformer`), so a test can build
-smaller models in their place.
+(`make_classifier`, `NVAE`, `PSP`, `StyleTransformer`, `StyledGenerator`,
+`DefenceNVAE`), so a test can build smaller models in their place.
 
 The flagship (`flagship.py`), gender (`gender.py`) and cars (`cars.py`)
 builders make the same defenses with random weights from a seed.
@@ -35,11 +35,14 @@ from gen_adversarial_tpu_torch.defenses.ablations import (
     GaussianBlurDefense, GaussianNoiseDefense)
 from gen_adversarial_tpu_torch.defenses.base import (
     ClassifierDefense, MLVGMDefense, make_classifier_apply)
+from gen_adversarial_tpu_torch.defenses.competitors import AVaeDefense, NDVaeDefense
 from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.defenses.purify import (
     make_e4e_purify_split, make_nvae_purify_split, make_trans_purify_split)
+from gen_adversarial_tpu_torch.models.avae.model import StyledGenerator
 from gen_adversarial_tpu_torch.models.classifiers import make_classifier
 from gen_adversarial_tpu_torch.models.e4e.psp import PSP
+from gen_adversarial_tpu_torch.models.ndvae.model import DefenceNVAE
 from gen_adversarial_tpu_torch.models.nvae.model import NVAE, NVAEConfig
 from gen_adversarial_tpu_torch.models.style_transformer.model import StyleTransformer
 
@@ -139,8 +142,10 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
 
     remat defaults to on for the StyleGAN2 families (gender, cars), whose
     attack gradients do not fit without it; a remat_policy turns it on.
-    dtype 'bfloat16' casts the defense once (core/precision.defense_astype);
-    the attacks' math stays float32. The environment's GAT_DF_COT_CHUNK sets
+    dtype 'bfloat16' casts the defense once (core/precision.defense_astype;
+    the A-VAE raises, as the JAX package's does once its weights are traced);
+    the attacks' math stays float32. The competitors (A-VAE, ND-VAE) run at
+    the caller's eot_steps, without remat. The environment's GAT_DF_COT_CHUNK sets
     the attacks' cotangent_chunk; under a remat_policy the forwards that are
     differentiated in blocks recompute their purifier whole (defenses/base.py)."""
     device = resolve_device(device, "load_defense")
@@ -152,8 +157,6 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
     experiment = experiment_of(config_path)
     image_size = IMAGE_SIZE[experiment]
     n_classes = N_CLASSES[experiment]
-    if defense_type in ("A-VAE", "ND-VAE"):
-        raise NotImplementedError(f"{defense_type} is not ported yet (ROADMAP Queue 1 item 4)")
 
     clf, clf_apply = load_classifier_parts(experiment, cfg.classifier_path, device)
     attacks = build_attacks(experiment, n_classes, cotangent_chunk)
@@ -168,6 +171,17 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
                                            eps=2.0 if experiment == "ids" else 4.0)
         else:
             defense = GaussianBlurDefense(clf, clf_apply, image_size)
+    elif defense_type == "A-VAE":
+        variables, _ = load_variables(cfg.autoencoder_path)
+        model = _on_device(lambda d: StyledGenerator(image_size, device=d), variables, device)
+        defense = AVaeDefense(model, clf, clf_apply, cfg.kernel_size)
+    elif defense_type == "ND-VAE":
+        variables, _ = load_variables(cfg.autoencoder_path)
+        model = _on_device(lambda d: DefenceNVAE(
+            x_channels=cfg.x_channels, encoding_channels=cfg.encoding_channels,
+            pre_proc_groups=cfg.pre_proc_groups, scales=cfg.scales, groups=cfg.groups,
+            cells=cfg.cells, input_dim=image_size, device=d), variables, device)
+        defense = NDVaeDefense(model, clf, clf_apply, cfg.noise_std)
     elif defense_type == "ours":
         alphas = (np.asarray(cfg.interpolation_alphas, np.float32)
                   * np.float32(cfg.alpha_attenuation))

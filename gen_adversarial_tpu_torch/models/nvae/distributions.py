@@ -68,6 +68,27 @@ def as_draws(source) -> Draws:
     return source if isinstance(source, Draws) else Draws(source)
 
 
+class RecordingDraws(Draws):
+    """Draws from `source` (a generator, a `Draws` or recorded tensors), each
+    appended to `record` (a new list unless one is given) as it is made; a
+    `Draws` of the record replays them in order, on any device."""
+
+    def __init__(self, source, record: list | None = None):
+        self.inner = as_draws(source)
+        self.record = [] if record is None else record
+
+    def normal(self, shape, like: torch.Tensor) -> torch.Tensor:
+        eps = self.inner.normal(shape, like)
+        self.record.append(eps)
+        return eps
+
+    def uniform(self, shape, like: torch.Tensor, low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        u = self.inner.uniform(shape, like, low, high)
+        self.record.append(u)
+        return u
+
+
 def position_generator(device, *position: int) -> torch.Generator:
     """A generator on `device` seeded from np.random.SeedSequence(position):
     the draws of a run's step depend on where it stands, not on what ran

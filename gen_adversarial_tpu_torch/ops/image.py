@@ -35,3 +35,11 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
         return x
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=align_corners)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Non-overlapping average pooling of NCHW images (F.avg_pool2d with
+    stride=kernel), the A-VAE purifier's downsampling."""
+    if kernel == 1:
+        return x
+    return F.avg_pool2d(x, kernel, kernel)

@@ -49,11 +49,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _on(model: nn.Module, batch: dict):
-    """(images NHWC float32, labels int64) of a numpy or tensor batch, on the
-    model's device."""
-    device = next(model.parameters()).device
-    images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
-    return images, torch.as_tensor(batch["label"], device=device).long()
+    """(images NHWC in the model's dtype, labels int64) of a numpy or tensor
+    batch, on the model's device."""
+    param = next(model.parameters())
+    images = torch.as_tensor(batch["image"], dtype=param.dtype, device=param.device)
+    return images, torch.as_tensor(batch["label"], device=param.device).long()
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

@@ -164,3 +164,16 @@ def test_malformed_files_raise_naming_the_file(tmp_path):
     for name in ("cut", "long", "empty"):
         with pytest.raises(ValueError, match=f"{name}.msgpack"):
             load_variables(tmp_path / f"{name}.msgpack")
+
+
+def test_train_state_names_its_trainer(tmp_path):
+    """A trainer's state reads back under its own name only: one trainer's
+    loader refuses another's file in the same step directory layout."""
+    tree = {"it": 3, "w": np.arange(4.0, dtype=np.float32)}
+    checkpoint.save_state(tmp_path, 3, "avae", tree)
+    got = checkpoint.load_state(tmp_path, 3, "avae")
+    assert got["trainer"] == "avae" and int(got["it"]) == 3
+    np.testing.assert_array_equal(np.asarray(got["w"]), tree["w"])
+    assert checkpoint.latest_step(tmp_path) == 3
+    with pytest.raises(ValueError, match="'avae' trainer's state, not the 'classifier'"):
+        checkpoint.load_state(tmp_path, 3, "classifier")

@@ -8,7 +8,8 @@ ablations, `no_defense` and TRADES, under EoT-2 with every draw made by
 numpy and replayed on both sides. The gender and cars families load through
 the same factory from checkpoints the port wrote (their constructors
 patched small) and compute what the builders' defenses compute. A-VAE and
-ND-VAE raise; bfloat16 casts; 'cuda' without CUDA raises."""
+ND-VAE configs on the NVAE's checkpoint raise; bfloat16 casts; 'cuda'
+without CUDA raises."""
 
 import dataclasses
 from contextlib import nullcontext
@@ -203,7 +204,10 @@ def test_a_remat_policy_with_a_cotangent_chunk_raises_before_loading(world, tiny
 
 @pytest.mark.parametrize("name", ["competitor_avae_ids", "competitor_ndvae_ids"])
 def test_competitors_raise_naming_the_roadmap_item(world, tiny_classifier, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+    """The competitors load (tests/test_torch_competitor_cli.py holds them to
+    JAX on their own checkpoints); pointed at the NVAE's checkpoint, as
+    here, they raise naming a leaf that is not theirs."""
+    with pytest.raises(ValueError, match="flax leaf|no submodule|not in the flax tree"):
         factory.load_defense(str(world / f"{name}.yaml"), device="cpu")
 
 

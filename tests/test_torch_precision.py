@@ -178,14 +178,14 @@ def test_remat_records_bf16_draws_and_keeps_the_gradient(setup, monkeypatch):
     its draws in bfloat16 and replays them: the input gradient equals the
     one without remat."""
     recorded = []
-    inner = base._RecordingDraws.normal
+    inner = base.RecordingDraws.normal
 
     def spy(self, shape, like):
         eps = inner(self, shape, like)
         recorded.append(eps.dtype)
         return eps
 
-    monkeypatch.setattr(base._RecordingDraws, "normal", spy)
+    monkeypatch.setattr(base.RecordingDraws, "normal", spy)
     x = torch.tensor(_images(3, 2))
     port_draws, _ = draws(setup, 2, 2, 4)
     g = torch.tensor(np.random.RandomState(5).randn(2, N_CLASSES).astype(np.float32))

@@ -279,6 +279,9 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "core/init.py", "core/runlog.py", "core/torch_convert.py", "train/augment.py",
     "train/classifier.py", "train/nvae.py", "cli/train_classifier.py", "cli/train_nvae.py",
     "efficacy_run.py",
+    "models/avae/model.py", "models/ndvae/model.py", "defenses/competitors.py",
+    "train/avae.py", "train/ndvae.py", "train/trades.py", "cli/train_avae.py",
+    "cli/train_ndvae.py", "cli/trades_finetune.py",
 ]
 
 

@@ -2,6 +2,8 @@
 package: random flax variables from a numpy seed, their transfer into a port
 module, NHWC/NCHW moves, and the relative error the gradient tests bound."""
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ def random_variables(variables, seed: int):
     leaves are stored at unit variance and scaled at call time, so N(0, 1)
     (which also makes every NoiseInjection weight non-zero); the style MLP's
     (`style_<i>/weight` of the generator) divided by its lr_mul 0.01, so
-    N(0, 100^2); the constant input and the fixed `noise_<i>` maps N(0, 1)."""
+    N(0, 100^2); the constant input and the fixed `noise_<i>` maps N(0, 1).
+    The A-VAE's equalized weights, `style_layers_<i>` included, are N(0, 1)
+    as flax initializes them."""
     rng = np.random.RandomState(seed)
     flat, treedef = jax.tree_util.tree_flatten_with_path(variables)
     out = []
@@ -31,7 +35,7 @@ def random_variables(variables, seed: int):
         names = [str(getattr(k, "key", k)) for k in path]
         name = names[-1]
         shape = tuple(leaf.shape)
-        if name == "weight" and len(names) > 1 and names[-2].startswith("style_"):
+        if name == "weight" and len(names) > 1 and re.fullmatch(r"style_\d+", names[-2]):
             v = rng.randn(*shape) / 0.01
         elif name == "weight" or name == "const_input" or name.startswith("noise_"):
             v = rng.randn(*shape)
@@ -77,8 +81,9 @@ def keyed_normal_call(key, per_draw):
     `jax.random.split(key, len(per_draw))`, splitting each draw's key into
     (k_noise, k_purify) as MLVGMDefense does. per_draw[d] is the pair
     (input noise, purifier draw) of draw d, either None where that key draws
-    nothing, the purifier draw a list where the purifier splits k_purify into
-    one key a draw (the NVAE: z_0, then each group); a key is looked up in a
+    nothing, either a list where the defense splits its key into one key a
+    draw (the NVAE's k_purify: z_0, then each group; the A-VAE's k_noise: a
+    noise map a progression step); a key is looked up in a
     table of these keys by the shape asked for. The value comes back in the
     dtype asked for: a bfloat16 defense gets the draws rounded, as the
     port's `Draws` rounds them to the tensor they are drawn for.
@@ -94,29 +99,38 @@ def keyed_normal_calls(pairs):
     """keyed_normal_call over several (key, per_draw) pairs in one table: a
     function jitted under the returned jax_call finds the draws of every
     key, so one trace serves calls with any of them."""
-    import jax.numpy as jnp
-
-    tables = {}
+    entries = []
     for key, per_draw in pairs:
         for d, kd in enumerate(jax.random.split(key, len(per_draw))):
             k_noise, k_purify = jax.random.split(kd)
-            noise, purify = per_draw[d]
-            entries = [(k_noise, noise)]
-            if isinstance(purify, (list, tuple)):
-                entries += list(zip(jax.random.split(k_purify, len(purify)), purify))
-            else:
-                entries.append((k_purify, purify))
-            for k, v in entries:
-                if v is None:
-                    continue
-                keys, vals = tables.setdefault(v.shape, ([], []))
-                keys.append(np.asarray(k))
-                vals.append(v)
+            for k, v in zip((k_noise, k_purify), per_draw[d]):
+                if isinstance(v, (list, tuple)):
+                    entries += list(zip(jax.random.split(k, len(v)), v))
+                else:
+                    entries.append((k, v))
+    return keyed_normal_table(entries)
+
+
+def keyed_normal_table(entries):
+    """jax_call(fn) that runs fn() with jax.random.normal(k, shape) giving
+    the value of `entries` ((key, value) pairs; a None value is skipped)
+    whose key is k, looked up among the values of that shape (see
+    keyed_normal_call)."""
+    import jax.numpy as jnp
+
+    tables = {}
+    for k, v in entries:
+        if v is None:
+            continue
+        keys, vals = tables.setdefault(v.shape, ([], []))
+        keys.append(np.asarray(k))
+        vals.append(v)
     tables = {s: (jnp.asarray(np.stack(k)), jnp.asarray(np.stack(v)))
               for s, (k, v) in tables.items()}
     real_normal = jax.random.normal
 
-    def fake_normal(k, shape=(), dtype=jnp.float32):
+    def fake_normal(k, shape=(), dtype=None):
+        dtype = jnp.result_type(float) if dtype is None else dtype  # float64 under x64
         if tuple(shape) not in tables:
             return real_normal(k, shape, dtype)
         keys, vals = tables[tuple(shape)]
