@@ -46,8 +46,11 @@ bfloat16 distance;
 bfloat16 gender defense. Phase `attack_remat` also takes one CE input
 gradient of the full gender defense under each `remat_policy`. Last,
 `harness` runs the evaluation entry points on the float32 flagship from
-files: its NVAE and VGG written as flax msgpack checkpoints
-(core/convert.to_jax_variables, core/checkpoint.save_variables), a copy of
+files: its NVAE and VGG written as the paper's released checkpoints hold
+them (reference-format .pt files fabricated from the modules by
+tests/torch_reference_layout.py, the NVAE's convolutions weight-normed),
+converted to flax msgpack by cli/convert_checkpoints.py (each file's tree
+held against core/convert.to_jax_variables of its module), a copy of
 configs/ours_linear_noise_ids.yaml pointing at them, 6 PNG images in two
 class folders; `eval/factory.load_defense` (its logits held against the
 built defense's on the same draws) and `eval/harness.run_benchmark` under
@@ -246,6 +249,137 @@ def cuda_ms(torch, fn, reps=KERNEL_REPS, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _leaves(tree, path=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def run_convert_cli(argv) -> None:
+    """cli/convert_checkpoints.main(argv), then one JSON line: its seconds
+    and its peak resident memory in GiB: VmHWM, the high-water mark of this
+    process's own address space, where /proc reports it (getrusage's
+    ru_maxrss keeps the forking parent's resident size across exec), and
+    the largest resident size a thread sampled every 10 ms from
+    /proc/self/statm; null where /proc has neither."""
+    import os
+    import re
+    import threading
+
+    from gen_adversarial_tpu_torch.cli.convert_checkpoints import main as convert
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    sampled, done = [0], threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            try:
+                with open("/proc/self/statm") as f:
+                    sampled[0] = max(sampled[0], int(f.read().split()[1]) * page)
+            except (OSError, ValueError, IndexError):
+                return
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    t = time.monotonic()
+    sampler.start()
+    convert(argv)
+    seconds = time.monotonic() - t
+    done.set()
+    sampler.join()
+    try:
+        with open("/proc/self/status") as f:
+            hwm = re.search(r"VmHWM:\s+(\d+)\s*kB", f.read())
+    except OSError:
+        hwm = None
+    print(json.dumps({"seconds": seconds,
+                      "vm_hwm_gib": int(hwm.group(1)) / 2**20 if hwm else None,
+                      "sampled_rss_gib": sampled[0] / 2**30 if sampled[0] else None}))
+
+
+# the converter CLI in a process of its own, as a user runs it
+CONVERT_CLI = "import sys, chip_smoke; chip_smoke.run_convert_cli(sys.argv[1:])"
+# a weight-norm fold (a norm, a quotient, a product in float32) against the
+# weight it was made from
+FOLD_RTOL, FOLD_ATOL = 1e-5, 1e-7
+
+
+def reference_files_round_trip(torch, nvae, vgg, nvae_cfg, tmp, root) -> dict:
+    """The flagship's NVAE and VGG as the paper's released files hold them,
+    fabricated from the modules (tests/torch_reference_layout.py): the NVAE's
+    reference checkpoint, {'configuration', 'state_dict_temp=0.6'}, its
+    convolutions weight-normed as torch's parametrizations store them, and
+    the VGG's trainer checkpoint, {'state_dict'}. The converter CLI turns
+    them into tmp/nvae.msgpack and tmp/vgg.msgpack, both files at once; each
+    file's tree is the module's to_jax_variables leaf for leaf, equal but
+    for the folded kernels (within FOLD_RTOL), and the NVAE's meta config is
+    nvae_cfg. Returns the numbers; raises on a difference."""
+    import numpy as np
+    from gen_adversarial_tpu_torch.core.checkpoint import load_variables
+    from gen_adversarial_tpu_torch.core.convert import to_jax_variables
+    from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig
+    from tests import torch_reference_layout as layout
+
+    out = {}
+    t = time.monotonic()
+    trees = {"nvae": to_jax_variables(nvae), "vgg": to_jax_variables(vgg)}
+    ckpt = layout.nvae_checkpoint(trees["nvae"], nvae_cfg, form="parametrizations")
+    key = "state_dict_temp=0.6"
+    ckpt[key] = {k: torch.from_numpy(v) for k, v in ckpt[key].items()}
+    torch.save(ckpt, tmp / "nvae.pt")
+    sd = layout.classifier_state_dict(trees["vgg"], "vgg")
+    torch.save({"epoch": 0, "state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               tmp / "vgg.pt")
+    del ckpt, sd
+    out["reference_pt_write_s"] = time.monotonic() - t
+    out["reference_pt_gb"] = sum((tmp / f).stat().st_size for f in ("nvae.pt", "vgg.pt")) / 1e9
+
+    args = {"nvae": ["--kind", "nvae", "--temperature", "0.6"],
+            "vgg": ["--kind", "classifier", "--model-type", "vgg"]}
+    t = time.monotonic()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", CONVERT_CLI, *a, "--src", str(tmp / f"{name}.pt"),
+         "--dst", str(tmp / f"{name}.msgpack")], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, a in args.items()}
+    cli = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=BUDGET_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"convert_checkpoints {name}: exit {proc.returncode}: "
+                               f"{stderr[-2000:]}")
+        cli[name] = json.loads(stdout.strip().splitlines()[-1])
+    out["convert_wall_s"] = time.monotonic() - t
+    out["convert_cli"] = cli
+
+    t = time.monotonic()
+    files = {name: load_variables(tmp / f"{name}.msgpack") for name in trees}
+    out["compare_read_s"] = time.monotonic() - t
+    fold_err = 0.0
+    for name, (got, meta) in files.items():
+        want = dict(_leaves(trees[name]))
+        got = dict(_leaves(got))
+        if sorted(got) != sorted(want):
+            raise RuntimeError(f"{name}: the converted tree's leaves differ: "
+                               f"{sorted(set(got) ^ set(want))[:5]}")
+        for path, w in want.items():
+            g = got[path]
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise RuntimeError(f"{name} {path}: {g.dtype}{g.shape} for {w.dtype}{w.shape}")
+            if name == "nvae" and path[-1] == "kernel":
+                fold_err = max(fold_err, float(np.abs(g - w).max() / np.abs(w).max()))
+                if not np.allclose(g, w, rtol=FOLD_RTOL, atol=FOLD_ATOL):
+                    raise RuntimeError(f"nvae {path}: the folded kernel is "
+                                       f"{np.abs(g - w).max()} off")
+            elif not np.array_equal(g, w):
+                raise RuntimeError(f"{name} {path}: the converted leaf differs")
+    if NVAEConfig(**files["nvae"][1]["config"]) != nvae_cfg:
+        raise RuntimeError(f"the NVAE's meta config {files['nvae'][1]['config']}")
+    out["nvae_fold_max_rel_err"] = fold_err
+    out["leaves"] = {name: len(list(_leaves(tree))) for name, tree in trees.items()}
+    return out
 
 
 def main() -> int:
@@ -1404,14 +1538,12 @@ def main() -> int:
 
     def harness_phase():
         # the evaluation entry points on the float32 flagship, from files
-        import dataclasses
         import re
         from functools import partial
 
         import numpy as np
-        from gen_adversarial_tpu_torch.core.checkpoint import load_variables, save_variables
+        from gen_adversarial_tpu_torch.core.checkpoint import load_variables
         from gen_adversarial_tpu_torch.core.config import DefenseConfig
-        from gen_adversarial_tpu_torch.core.convert import to_jax_variables
         from gen_adversarial_tpu_torch.data import png
         from gen_adversarial_tpu_torch.eval.factory import load_defense
         from gen_adversarial_tpu_torch.eval.harness import (
@@ -1460,12 +1592,12 @@ def main() -> int:
             raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
         del net, first
         torch.cuda.synchronize()
+        # the checkpoints: reference-format .pt files of the built modules,
+        # converted by the converter CLI (see reference_files_round_trip)
         t = time.monotonic()
-        save_variables(tmp / "nvae.msgpack", to_jax_variables(built.purifier),
-                       {"config": dataclasses.asdict(FLAGSHIP_NVAE)})
-        save_variables(tmp / "vgg.msgpack", to_jax_variables(built.classifier),
-                       {"model_type": "vgg"})
-        out["checkpoint_write_s"] = time.monotonic() - t
+        out["conversion"] = reference_files_round_trip(
+            torch, built.purifier, built.classifier, FLAGSHIP_NVAE, tmp, root)
+        out["conversion_s"] = time.monotonic() - t
         out["checkpoint_gb"] = sum((tmp / f).stat().st_size
                                    for f in ("nvae.msgpack", "vgg.msgpack")) / 1e9
         # read: every array of both files to the device

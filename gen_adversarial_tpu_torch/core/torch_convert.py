@@ -1,10 +1,12 @@
-"""torchvision state dicts -> flax variable trees (the part of
-gen_adversarial_tpu/core/torch_convert.py that the classifier trainer's
-`--pretrained` needs): `convert_torchvision_backbone` maps a raw torchvision
-VGG11-BN, ResNet50 or ResNeXt50 state dict (as {key: numpy array}) onto the
-classifiers' flax variable tree with a fresh projector head, which
-`core/convert.from_jax_variables` loads into the port's module. The tree is
-the JAX package's, leaf for leaf.
+"""Torch state dicts (as {key: numpy array}) -> flax variable trees, the
+port's copy of gen_adversarial_tpu/core/torch_convert.py (numpy only; the
+converter CLI, cli/convert_checkpoints.py, does the torch.load). It covers
+the reference's classifier checkpoints ({'state_dict': ...} of a torchvision
+VGG11-BN, ResNet50 or ResNeXt50 under a 'model.' wrapper: `convert_classifier`)
+and NVAE checkpoints ({'configuration', 'state_dict_temp=t'}: `convert_nvae`),
+and the raw torchvision backbones of the classifier trainer's `--pretrained`
+(`convert_torchvision_backbone`). The trees are the JAX package's, leaf for
+leaf; `core/convert.from_jax_variables` loads them into the port's modules.
 
 Layout rules: conv OIHW -> HWIO, linear (o, i) -> (i, o), BatchNorm
 weight / bias / running_mean / running_var -> scale / bias / mean / var,
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from gen_adversarial_tpu_torch.models.classifiers import VGG11_PLAN
+from gen_adversarial_tpu_torch.models.nvae.cells import make_ar_mask
 
 
 def conv_w(w: np.ndarray) -> np.ndarray:
@@ -111,6 +114,145 @@ def convert_vgg(sd: dict, plan=VGG11_PLAN, head: bool = True) -> dict:
     if head:
         params["classifier"], stats["classifier"] = _projector(sd, "model.classifier")
     return {"params": params, "batch_stats": stats}
+
+
+def _enc_cell(sd: dict, prefix: str, downsampling: bool, use_se: bool = True):
+    """The reference's ResidualCellEncoder: its residual Sequential is [BN,
+    SiLU, conv, BN, SiLU, conv, SE?]; the skip is SkipDown.conv when it
+    downsamples."""
+    p, s = {}, {}
+    p["bn0"], s["bn0"] = take_bn(sd, f"{prefix}.residual.0")
+    p["conv0"] = take_conv(sd, f"{prefix}.residual.2")
+    p["bn1"], s["bn1"] = take_bn(sd, f"{prefix}.residual.3")
+    p["conv1"] = take_conv(sd, f"{prefix}.residual.5")
+    if use_se:
+        p["se"] = {"linear_1": take_linear(sd, f"{prefix}.residual.6.linear_1"),
+                   "linear_2": take_linear(sd, f"{prefix}.residual.6.linear_2")}
+    if downsampling:
+        p["skip"] = {"conv": take_conv(sd, f"{prefix}.skip_connection.conv")}
+    return p, s
+
+
+def _dec_cell(sd: dict, prefix: str, upsampling: bool, use_se: bool = True):
+    """The reference's ResidualCellDecoder: its residual Sequential is
+    [Upsample?] + [BN, conv1x1, BN, SiLU, dwconv5x5, BN, SiLU, conv1x1, BN,
+    SE?]."""
+    o = 1 if upsampling else 0
+    p, s = {}, {}
+    p["bn0"], s["bn0"] = take_bn(sd, f"{prefix}.residual.{0 + o}")
+    p["conv_expand"] = take_conv(sd, f"{prefix}.residual.{1 + o}", bias=False)
+    p["bn1"], s["bn1"] = take_bn(sd, f"{prefix}.residual.{2 + o}")
+    p["conv_depthwise"] = take_conv(sd, f"{prefix}.residual.{4 + o}", bias=False)
+    p["bn2"], s["bn2"] = take_bn(sd, f"{prefix}.residual.{5 + o}")
+    p["conv_project"] = take_conv(sd, f"{prefix}.residual.{7 + o}", bias=False)
+    p["bn3"], s["bn3"] = take_bn(sd, f"{prefix}.residual.{8 + o}")
+    if use_se:
+        p["se"] = {"linear_1": take_linear(sd, f"{prefix}.residual.{9 + o}.linear_1"),
+                   "linear_2": take_linear(sd, f"{prefix}.residual.{9 + o}.linear_2")}
+    if upsampling:
+        p["skip"] = {"conv": take_conv(sd, f"{prefix}.skip_connection.conv")}
+    return p, s
+
+
+def _nf_stack(sd: dict, prefix: str, n_blocks: int) -> dict:
+    """nf_cells.nf_{s}:{g}, a Sequential of NFBlocks, each with cell1 and
+    cell2 of MaskedConv2d layers at indices 0, 2 and 4. The stored weights
+    may or may not be masked already; masking again changes nothing."""
+    out = {}
+    for i in range(n_blocks):
+        blk = {}
+        for cell, mirror in (("cell1", False), ("cell2", True)):
+            cp = {}
+            for name, idx, k, zero_diag in (("conv0", 0, 3, True), ("conv1", 2, 5, False),
+                                            ("conv2", 4, 1, False)):
+                conv = take_conv(sd, f"{prefix}.{i}.{cell}.layers.{idx}")
+                mask = make_ar_mask(k, k, mirror, zero_diag)
+                conv["kernel"] = conv["kernel"] * mask[:, :, None, None]
+                cp[name] = conv
+            blk[cell] = cp
+        out[i] = blk
+    return out
+
+
+def convert_nvae(sd: dict, cfg) -> dict:
+    """The reference NVAE's state dict (its module tree, weight-normed convs,
+    SyncBatchNorms) -> the NVAE's flax variables; `cfg` is an NVAEConfig."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    params, stats = {}, {}
+    gps = cfg.groups_per_scale
+
+    params["init_conv"] = take_conv(sd, "preprocessing_block.init_conv")
+    for b in range(cfg.n_pre_post_blocks):
+        for c in range(cfg.n_pre_post_cells):
+            last = c == cfg.n_pre_post_cells - 1
+            p, s = _enc_cell(sd, f"preprocessing_block.block_{b}.cell_{c}",
+                             downsampling=last, use_se=cfg.use_se)
+            params[f"pre_cells_{b}_{c}"], stats[f"pre_cells_{b}_{c}"] = p, s
+
+    for s_ in range(cfg.num_scales - 1, -1, -1):
+        for g in range(gps[s_]):
+            for c in range(cfg.num_cells_per_group):
+                p, st = _enc_cell(sd, f"encoder_tower.scale_{s_}.group_{g}.cell_{c}",
+                                  downsampling=False, use_se=cfg.use_se)
+                params[f"enc_cells_{s_}_{g}_{c}"] = p
+                stats[f"enc_cells_{s_}_{g}_{c}"] = st
+            if not (s_ == 0 and g == 0):
+                params[f"enc_combiners_{s_}_{g}"] = {
+                    "conv": take_conv(sd, f"encoder_combiners.combiner_{s_}:{g}.conv")}
+        if s_ > 0:
+            p, st = _enc_cell(sd, f"encoder_tower.scale_{s_}.downsampling",
+                              downsampling=True, use_se=cfg.use_se)
+            params[f"enc_cells_{s_}_down"] = p
+            stats[f"enc_cells_{s_}_down"] = st
+
+    params["encoder_0_conv"] = take_conv(sd, "encoder_0.1")
+
+    for s_ in range(cfg.num_scales):
+        for g in range(gps[s_]):
+            params[f"enc_sampler_{s_}_{g}"] = take_conv(sd, f"enc_sampler.sampler_{s_}:{g}")
+            if cfg.num_nf_cells:  # 0 or None: empty flow Sequentials, nothing to map
+                # flax names list entries '<name>_<index>': nf_cells_{s}_{g}_{i}
+                for i, blk in _nf_stack(sd, f"nf_cells.nf_{s_}:{g}", cfg.num_nf_cells).items():
+                    params[f"nf_cells_{s_}_{g}_{i}"] = blk
+            if not (s_ == 0 and g == 0):
+                params[f"dec_sampler_{s_}_{g}"] = take_conv(sd, f"dec_sampler.sampler_{s_}:{g}.1")
+
+    for s_ in range(cfg.num_scales):
+        for g in range(gps[s_]):
+            if not (s_ == 0 and g == 0):
+                for c in range(cfg.num_cells_per_group):
+                    p, st = _dec_cell(sd, f"decoder_tower.scale_{s_}.group_{g}.cell_{c}",
+                                      upsampling=False, use_se=cfg.use_se)
+                    params[f"dec_cells_{s_}_{g}_{c}"] = p
+                    stats[f"dec_cells_{s_}_{g}_{c}"] = st
+            params[f"dec_combiners_{s_}_{g}"] = {
+                "conv": take_conv(sd, f"decoder_combiners.combiner_{s_}:{g}.conv")}
+        if s_ < cfg.num_scales - 1:
+            p, st = _dec_cell(sd, f"decoder_tower.scale_{s_}.upsampling",
+                              upsampling=True, use_se=cfg.use_se)
+            params[f"dec_cells_{s_}_up"] = p
+            stats[f"dec_cells_{s_}_up"] = st
+
+    for b in range(cfg.n_pre_post_blocks):
+        for c in range(cfg.n_pre_post_cells):
+            p, st = _dec_cell(sd, f"postprocessing_block.block_{b}.cell_{c}",
+                              upsampling=c == 0, use_se=cfg.use_se)
+            params[f"post_cells_{b}_{c}"], stats[f"post_cells_{b}_{c}"] = p, st
+
+    params["to_logits_conv"] = take_conv(sd, "to_logits.1")
+    params["const_prior"] = np.transpose(sd["const_prior"], (0, 2, 3, 1))
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_classifier(sd: dict, model_type: str) -> dict:
+    """A reference classifier's state dict ('model.' wrapper) -> the flax
+    tree of its model_type: 'resnet', 'resnext' or 'vgg'."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    if model_type in ("resnet", "resnext"):
+        return convert_resnet(sd)
+    if model_type == "vgg":
+        return convert_vgg(sd)
+    raise ValueError(model_type)
 
 
 def convert_torchvision_backbone(sd: dict, model_type: str, init_variables: dict,

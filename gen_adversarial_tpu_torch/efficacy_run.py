@@ -25,7 +25,7 @@ Stages (each kept under .efficacy_torch/; a rerun resumes):
                       'ours_noise' (initial noise eps 2.0), EoT-8.
   5. report           EFFICACY_torch.json at the repository's root.
 
-Run:  python -m gen_adversarial_tpu_torch.efficacy_run [--device cuda]
+Run:  python -m gen_adversarial_tpu_torch.efficacy_run [--device cuda] [--seed 7]
       GAT_EFFICACY_STAGE=3 python -m ...   (stop after stage 3)
 
 Every stage appends its wall seconds and numbers to
@@ -114,12 +114,12 @@ def synth_image(rng: np.random.RandomState, cls: int, size: int) -> np.ndarray:
     return np.clip(img, 0.0, 1.0)
 
 
-def stage0_dataset(log):
+def stage0_dataset(log, seed):
     from gen_adversarial_tpu_torch.data import png
     marker = WORK / "data" / ".done"
     if marker.exists():
         return
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     for split, n_per in (("train", N_TRAIN_PER_CLASS), ("test", N_TEST_PER_CLASS)):
         for cls in range(N_CLASSES):
             d = WORK / "data" / split / f"class_{cls}"
@@ -152,7 +152,7 @@ def _accuracy(model, dataset) -> float:
     return correct / len(dataset)
 
 
-def stage1_classifier(log, device):
+def stage1_classifier(log, device, seed):
     from gen_adversarial_tpu_torch.core.checkpoint import load_variables, save_variables
     from gen_adversarial_tpu_torch.core.convert import from_jax_variables, to_jax_variables
     from gen_adversarial_tpu_torch.core.init import flax_init_
@@ -169,12 +169,12 @@ def stage1_classifier(log, device):
 
     train_ds = ImageLabelDataset(str(WORK / "data" / "train"), IMAGE_SIZE)
     test_ds = ImageLabelDataset(str(WORK / "data" / "test"), IMAGE_SIZE)
-    flax_init_(model, torch.Generator(device=device).manual_seed(SEED))
+    flax_init_(model, torch.Generator(device=device).manual_seed(seed))
     state = create_train_state(model.to(memory_format=torch.channels_last), CLF_LR)
     for epoch in range(CLF_EPOCHS):
         losses = [train_step(state, batch, None, augment=_normalize_only)
                   for batch in iterate_batches(train_ds, CLF_BATCH, shuffle=True,
-                                               seed=SEED + epoch)]
+                                               seed=seed + epoch)]
         log(f"[stage1 epoch {epoch + 1}/{CLF_EPOCHS}] "
             f"loss {float(torch.stack(losses).mean()):.4f}")
     test_acc = _accuracy(model, test_ds)
@@ -184,7 +184,7 @@ def stage1_classifier(log, device):
 
 
 # --------------------------------------------------------------- stage 2
-def stage2_nvae(log, clf, device):
+def stage2_nvae(log, clf, device, seed):
     from gen_adversarial_tpu_torch.core.checkpoint import load_variables, save_variables
     from gen_adversarial_tpu_torch.core.convert import from_jax_variables, to_jax_variables
     from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset, iterate_batches
@@ -206,7 +206,7 @@ def stage2_nvae(log, clf, device):
     train_ds = ImageLabelDataset(str(WORK / "data" / "train"), IMAGE_SIZE)
     t = time.monotonic()
     fit_nvae(model, train_ds, epochs=NVAE_EPOCHS, lr=NVAE_LR, batch_size=NVAE_BATCH,
-             seed=SEED, log_fn=log, checkpoint_path=str(WORK / "nvae.msgpack"),
+             seed=seed, log_fn=log, checkpoint_path=str(WORK / "nvae.msgpack"),
              input_noise=NVAE_INPUT_NOISE)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -251,7 +251,7 @@ def _make_defense(nvae, clf, alphas, device, remat=False, noise_eps=0.0):
         image_size=IMAGE_SIZE, remat=remat)
 
 
-def _make_deepfool_adv_set(log, defense, images_path, out_dir, n_samples, device):
+def _make_deepfool_adv_set(log, defense, images_path, out_dir, n_samples, device, seed):
     """DeepFool adversaries of `defense` through EoT, kept as PNG files in
     class folders under their source's name (the format of
     search/grid.create_adversarial_dataset)."""
@@ -265,14 +265,14 @@ def _make_deepfool_adv_set(log, defense, images_path, out_dir, n_samples, device
     net = eot_wrap(defense, EOT_STEPS)
     kept = idx = 0
     order = np.arange(len(dataset))
-    np.random.RandomState(SEED).shuffle(order)
+    np.random.RandomState(seed).shuffle(order)
     for b, batch in enumerate(iterate_batches(dataset, EVAL_BATCH, drop_last=False,
-                                              shuffle=True, seed=SEED)):
+                                              shuffle=True, seed=seed)):
         if kept >= n_samples:
             break
         x = torch.clamp(torch.from_numpy(batch["image"]).to(device), 0, 1)
         y = torch.from_numpy(batch["label"].astype(np.int64)).to(device)
-        succ, bound, adv = deepfool_attack(net, x, y, position_generator(device, SEED, b),
+        succ, bound, adv = deepfool_attack(net, x, y, position_generator(device, seed, b),
                                            num_classes=N_CLASSES, max_iter=ADV_MAX_ITER)
         succ, bound, adv = succ.cpu().numpy(), bound.cpu().numpy(), adv.cpu().numpy()
         for i in range(x.shape[0]):
@@ -288,7 +288,7 @@ def _make_deepfool_adv_set(log, defense, images_path, out_dir, n_samples, device
     return kept
 
 
-def stage3_search(log, nvae, clf, device):
+def stage3_search(log, nvae, clf, device, seed):
     from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset
     from gen_adversarial_tpu_torch.search.alphas import AlphaEvaluator, get_best_combination
     from gen_adversarial_tpu_torch.search.gp import bayesian_optimize
@@ -309,7 +309,7 @@ def stage3_search(log, nvae, clf, device):
     t = time.monotonic()
     if not (adv_dir / ".done").exists():
         _make_deepfool_adv_set(log, defense, str(WORK / "data" / "train"), adv_dir, N_ADV,
-                               device)
+                               device, seed)
         (adv_dir / ".done").write_text("ok")
     adv_s = time.monotonic() - t
 
@@ -321,16 +321,16 @@ def stage3_search(log, nvae, clf, device):
     fp = {"experiment": "efficacy_ids_small", "eot": EOT_STEPS, "n_adv": len(adv_ds)}
     t = time.monotonic()
     evaluator = AlphaEvaluator(defense, images, labels, attenuation=1.0, eot_steps=EOT_STEPS,
-                               batch_size=EVAL_BATCH, seed=SEED, device=device)
-    grid_search(evaluator.objective_function, n_latents, n_steps=GRID_STEPS, seed=SEED,
+                               batch_size=EVAL_BATCH, seed=seed, device=device)
+    grid_search(evaluator.objective_function, n_latents, n_steps=GRID_STEPS, seed=seed,
                 results_folder=str(WORK / "search_grid"), log_fn=log, fingerprint_extra=fp)
     grid_s = time.monotonic() - t
     # a fresh evaluator with its own draws for the BO phase (each search
     # fast-forwards its own objective on resume)
     t = time.monotonic()
     bo_eval = AlphaEvaluator(defense, images, labels, attenuation=1.0, eot_steps=EOT_STEPS,
-                             batch_size=EVAL_BATCH, seed=SEED + 1, device=device)
-    bayesian_optimize(bo_eval.objective_function, n_latents, n_steps=BO_STEPS, seed=SEED,
+                             batch_size=EVAL_BATCH, seed=seed + 1, device=device)
+    bayesian_optimize(bo_eval.objective_function, n_latents, n_steps=BO_STEPS, seed=seed,
                       results_folder=str(WORK / "search_bo"), log_fn=log,
                       fingerprint_extra=fp, device=device)
     bo_s = time.monotonic() - t
@@ -349,7 +349,7 @@ def stage3_search(log, nvae, clf, device):
 
 
 # --------------------------------------------------------------- stage 4
-def stage4_harness(log, nvae, clf, alphas, device):
+def stage4_harness(log, nvae, clf, alphas, device, seed):
     from gen_adversarial_tpu_torch.defenses.base import ClassifierDefense, make_classifier_apply
     from gen_adversarial_tpu_torch.eval.factory import LoadedDefense, build_attacks
     from gen_adversarial_tpu_torch.eval.harness import ATTACK_JSON_NAMES, run_benchmark
@@ -389,7 +389,7 @@ def stage4_harness(log, nvae, clf, alphas, device):
             log(f"[stage4] running harness: {name}/{att} (eot={eot}, batch={EVAL_BATCH})")
             t = time.monotonic()
             run_benchmark(loaded, str(WORK / "data" / "test"), str(out),
-                          batch_size=EVAL_BATCH, seed=SEED, max_images=N_EVAL_IMAGES,
+                          batch_size=EVAL_BATCH, seed=seed, max_images=N_EVAL_IMAGES,
                           attack_filter=att, plots=True, log_fn=log)
             attack_seconds[f"{name}/{att}"] = time.monotonic() - t
             existing = json.loads(res_file.read_text())
@@ -414,7 +414,7 @@ def _device_line(device) -> str | None:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None
 
 
-def stage5_report(log, clf_acc, nvae_meta, alphas, runs, device):
+def stage5_report(log, clf_acc, nvae_meta, alphas, runs, device, seed):
     report = {
         "what": "defense-efficacy experiment on the PyTorch port: trained small models, "
                 "the port's harness, ids attack suite budgets",
@@ -434,6 +434,7 @@ def stage5_report(log, clf_acc, nvae_meta, alphas, runs, device):
         "eval": {"n_images": N_EVAL_IMAGES, "batch": EVAL_BATCH,
                  "attack_suite": "ids (DeepFool-128, C&W 1024x8 restarts, AutoAttack)",
                  "harness": "gen_adversarial_tpu_torch/eval/harness.run_benchmark"},
+        "seed": seed,
         "results": {},
         "notes": ["median_l2 is over SUCCESSFUL attacks only (the harness's 100.0 marker = "
                   "no adversary found within the attack budget)."],
@@ -472,6 +473,9 @@ def stage5_report(log, clf_acc, nvae_meta, alphas, runs, device):
 def main(argv: list[str] | None = None):
     p = argparse.ArgumentParser("defense-efficacy experiment on the port")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--seed", type=int, default=SEED,
+                   help="the dataset's, the initial weights', the data order's and the "
+                        "draws' seed (default %(default)s, the JAX tool's)")
     args = p.parse_args(argv)
     from gen_adversarial_tpu_torch.eval.factory import resolve_device
     device = resolve_device(args.device, "efficacy_run")
@@ -481,6 +485,11 @@ def main(argv: list[str] | None = None):
         torch.backends.cuda.matmul.allow_tf32 = False
 
     WORK.mkdir(parents=True, exist_ok=True)
+    seed_file = WORK / "seed"
+    if seed_file.exists() and int(seed_file.read_text()) != args.seed:
+        raise SystemExit(f"{WORK} holds the run of seed {seed_file.read_text()}, not "
+                         f"{args.seed}: move it away to start another seed")
+    seed_file.write_text(str(args.seed))
 
     def log(msg):
         print(msg, flush=True)
@@ -495,27 +504,27 @@ def main(argv: list[str] | None = None):
         return out, time.monotonic() - t
 
     stop_after = int(os.environ.get("GAT_EFFICACY_STAGE", "5"))
-    _, s = timed(stage0_dataset, log)
+    _, s = timed(stage0_dataset, log, args.seed)
     _record("0", s)
     if stop_after < 1:
         return
-    (clf, clf_acc), s = timed(stage1_classifier, log, device)
+    (clf, clf_acc), s = timed(stage1_classifier, log, device, args.seed)
     _record("1", s, clean_test_acc=clf_acc)
     if stop_after < 2:
         return
-    (nvae, nvae_meta), s = timed(stage2_nvae, log, clf, device)
+    (nvae, nvae_meta), s = timed(stage2_nvae, log, clf, device, args.seed)
     _record("2", s, **{k: v for k, v in nvae_meta.items() if k != "config"})
     if stop_after < 3:
         return
-    (alphas, numbers), s = timed(stage3_search, log, nvae, clf, device)
+    (alphas, numbers), s = timed(stage3_search, log, nvae, clf, device, args.seed)
     _record("3", s, **numbers, best_alphas=np.asarray(alphas).round(4).tolist())
     if stop_after < 4:
         return
-    (runs, numbers), s = timed(stage4_harness, log, nvae, clf, alphas, device)
+    (runs, numbers), s = timed(stage4_harness, log, nvae, clf, alphas, device, args.seed)
     _record("4", s, **numbers)
     if stop_after < 5:
         return
-    stage5_report(log, clf_acc, nvae_meta, alphas, runs, device)
+    stage5_report(log, clf_acc, nvae_meta, alphas, runs, device, args.seed)
 
 
 if __name__ == "__main__":

@@ -73,19 +73,20 @@ class LoadedDefense:
         return self.defense.get_purified(x, draws)
 
 
-def build_attacks(experiment: str, n_classes: int, cotangent_chunk: int | None = None) -> dict:
-    """name -> attack(net, images, labels, generator). cotangent_chunk is the
-    class-jacobian block of DeepFool and of AutoAttack's FAB
-    (attacks/utils.class_grads): the same results, less live memory."""
+def build_attacks(experiment: str, n_classes: int, deepfool_chunk: int | None = None,
+                  fab_chunk: int | None = None) -> dict:
+    """name -> attack(net, images, labels, generator). deepfool_chunk and
+    fab_chunk are the class-jacobian blocks (attacks/utils.class_grads) of
+    DeepFool and of AutoAttack's FAB: the same results, less live memory."""
     s = ATTACK_SUITES[experiment]
     return {
         "deepfool": partial(deepfool_attack, num_classes=s.deepfool_num_classes,
                             overshoot=s.deepfool_overshoot, max_iter=s.deepfool_max_iter,
-                            cotangent_chunk=cotangent_chunk),
+                            cotangent_chunk=deepfool_chunk),
         "c&w": partial(cw_attack, c=s.cw_c, kappa=s.cw_kappa, steps=s.cw_steps, lr=s.cw_lr,
                        n_restarts=s.cw_n_restarts,
                        early_stopping_steps=s.cw_early_stopping_steps),
-        "autoattack": partial(autoattack, n_classes=n_classes, cotangent_chunk=cotangent_chunk),
+        "autoattack": partial(autoattack, n_classes=n_classes, cotangent_chunk=fab_chunk),
     }
 
 
@@ -145,13 +146,16 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
     dtype 'bfloat16' casts the defense once (core/precision.defense_astype;
     the A-VAE raises, as the JAX package's does once its weights are traced);
     the attacks' math stays float32. The competitors (A-VAE, ND-VAE) run at
-    the caller's eot_steps, without remat. The environment's GAT_DF_COT_CHUNK sets
-    the attacks' cotangent_chunk; under a remat_policy the forwards that are
-    differentiated in blocks recompute their purifier whole (defenses/base.py)."""
+    the caller's eot_steps, without remat. As in the JAX package, the
+    environment's GAT_DF_COT_CHUNK sets DeepFool's cotangent_chunk and
+    GAT_COT_CHUNK AutoAttack's FAB's (0 or unset: None); under a remat_policy
+    the forwards that are differentiated in blocks recompute their purifier
+    whole (defenses/base.py)."""
     device = resolve_device(device, "load_defense")
     if dtype is not None and dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r}: one of {sorted(DTYPES)}")
-    cotangent_chunk = int(os.environ.get("GAT_DF_COT_CHUNK", "0")) or None
+    deepfool_chunk = int(os.environ.get("GAT_DF_COT_CHUNK", "0")) or None
+    fab_chunk = int(os.environ.get("GAT_COT_CHUNK", "0")) or None
     cfg = DefenseConfig.from_yaml(config_path)
     defense_type = defense_type_of(config_path)
     experiment = experiment_of(config_path)
@@ -159,7 +163,7 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
     n_classes = N_CLASSES[experiment]
 
     clf, clf_apply = load_classifier_parts(experiment, cfg.classifier_path, device)
-    attacks = build_attacks(experiment, n_classes, cotangent_chunk)
+    attacks = build_attacks(experiment, n_classes, deepfool_chunk, fab_chunk)
 
     if defense_type in ("base", "trades"):
         # a deterministic model: EoT over it changes nothing but costs eot_steps x

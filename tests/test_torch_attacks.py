@@ -394,7 +394,7 @@ def test_attack_suites_and_build_attacks_match_jax():
     assert {k: dataclasses.asdict(v) for k, v in ATTACK_SUITES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JAX_SUITES.items()}
     for experiment, n_classes in (("ids", 100), ("gender", 2), ("cars", 4)):
-        suite = build_attacks(experiment, n_classes, cotangent_chunk=4)
+        suite = build_attacks(experiment, n_classes, deepfool_chunk=4, fab_chunk=5)
         s = ATTACK_SUITES[experiment]
         assert suite["deepfool"].keywords == dict(
             num_classes=s.deepfool_num_classes, overshoot=s.deepfool_overshoot,
@@ -402,4 +402,4 @@ def test_attack_suites_and_build_attacks_match_jax():
         assert suite["c&w"].keywords == dict(
             c=s.cw_c, kappa=s.cw_kappa, steps=s.cw_steps, lr=s.cw_lr,
             n_restarts=s.cw_n_restarts, early_stopping_steps=s.cw_early_stopping_steps)
-        assert suite["autoattack"].keywords == dict(n_classes=n_classes, cotangent_chunk=4)
+        assert suite["autoattack"].keywords == dict(n_classes=n_classes, cotangent_chunk=5)

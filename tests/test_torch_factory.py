@@ -9,7 +9,8 @@ numpy and replayed on both sides. The gender and cars families load through
 the same factory from checkpoints the port wrote (their constructors
 patched small) and compute what the builders' defenses compute. A-VAE and
 ND-VAE configs on the NVAE's checkpoint raise; bfloat16 casts; 'cuda'
-without CUDA raises."""
+without CUDA raises. GAT_DF_COT_CHUNK reaches DeepFool and GAT_COT_CHUNK
+AutoAttack's FAB, as in the JAX package."""
 
 import dataclasses
 from contextlib import nullcontext
@@ -200,6 +201,56 @@ def test_a_remat_policy_with_a_cotangent_chunk_raises_before_loading(world, tiny
     assert want[5].abs().max() > 0
     for g, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("env", [{"GAT_DF_COT_CHUNK": "3"}, {"GAT_COT_CHUNK": "5"},
+                                 {"GAT_DF_COT_CHUNK": "3", "GAT_COT_CHUNK": "5"},
+                                 {"GAT_DF_COT_CHUNK": "0", "GAT_COT_CHUNK": "0"}])
+def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeypatch,
+                                                 tmp_path, env):
+    """As in the JAX package, GAT_DF_COT_CHUNK is DeepFool's class-jacobian
+    block and GAT_COT_CHUNK FAB's (0 or unset: None), each set alone and
+    both: the attacks' keywords, and the chunk FAB is called with inside the
+    monolithic AutoAttack and inside the staged one that run_benchmark builds
+    (APGD and FAB replaced by recorders; C&W takes no chunk)."""
+    for name in ("GAT_DF_COT_CHUNK", "GAT_COT_CHUNK"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    deepfool_chunk = int(env.get("GAT_DF_COT_CHUNK", "0")) or None
+    fab_chunk = int(env.get("GAT_COT_CHUNK", "0")) or None
+    loaded = factory.load_defense(str(world / "no_defense_ids.yaml"), device="cpu")
+    assert loaded.attacks["deepfool"].keywords["cotangent_chunk"] == deepfool_chunk
+    assert loaded.attacks["autoattack"].keywords == {"n_classes": 100,
+                                                     "cotangent_chunk": fab_chunk}
+    assert "cotangent_chunk" not in loaded.attacks["c&w"].keywords
+
+    seen = []
+
+    def fake_apgd(net, images, labels, draws, *args):
+        n = images.shape[0]
+        return torch.zeros(n, dtype=torch.bool), torch.full((n,), 100.0), images
+
+    def fake_fab(net, images, labels, draws, **kw):
+        seen.append(kw["cotangent_chunk"])
+        return fake_apgd(net, images, labels, draws)
+
+    import importlib
+
+    from gen_adversarial_tpu_torch.data import png
+    from gen_adversarial_tpu_torch.eval.harness import run_benchmark
+    # the package's `autoattack` function hides its module's name
+    autoattack_module = importlib.import_module("gen_adversarial_tpu_torch.attacks.autoattack")
+    monkeypatch.setattr(autoattack_module, "apgd_attack", fake_apgd)
+    monkeypatch.setattr(autoattack_module, "fab_attack", fake_fab)
+    x = torch.tensor(_images(4)).clamp(0, 1)
+    loaded.attacks["autoattack"](loaded.net, x, torch.tensor([0, 1]), torch.Generator())
+    for i in range(2):
+        png.write(tmp_path / "images" / "c" / f"{i}.png",
+                  (_images(i)[0].clip(0, 1) * 255).round().astype(np.uint8))
+    run_benchmark(loaded, str(tmp_path / "images"), str(tmp_path / "results"), batch_size=2,
+                  attack_filter="autoattack", plots=False, log_fn=lambda msg: None)
+    assert seen == [fab_chunk, fab_chunk]
 
 
 @pytest.mark.parametrize("name", ["competitor_avae_ids", "competitor_ndvae_ids"])

@@ -257,7 +257,9 @@ OPTIONAL = {"PIL": ("data/datasets.py", "eval/harness.py", "search/grid.py")}
 
 
 def _port_files():
-    return sorted((REPO / "gen_adversarial_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # chip_smoke.py fabricates reference checkpoints with tests/torch_reference_layout.py
+    return sorted((REPO / "gen_adversarial_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_reference_layout.py"]
 
 
 SLICE_MODULES = [  # the modules of each port slice, which the checks below cover
@@ -282,6 +284,8 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "models/avae/model.py", "models/ndvae/model.py", "defenses/competitors.py",
     "train/avae.py", "train/ndvae.py", "train/trades.py", "cli/train_avae.py",
     "cli/train_ndvae.py", "cli/trades_finetune.py",
+    "core/stylegan_convert.py", "core/avae_convert.py", "core/ndvae_convert.py",
+    "cli/convert_checkpoints.py",
 ]
 
 
