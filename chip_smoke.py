@@ -81,13 +81,26 @@ bfloat16 ND-VAE's agreement with float32, and a small A-VAE and ND-VAE on
 the card against the CPU; `train_competitors` times the A-VAE's WGAN-GP
 steps (batch 32, 64 px), the ND-VAE's cars128 recipe (batch 32) and
 TRADES on the flagship VGG11-BN (batch 64), and holds one step of each, at
-small sizes, on the card against the CPU. Every phase prints one JSON line with its elapsed seconds;
+small sizes, on the card against the CPU. Then `distributed`
+(core/distributed.py, one process per GPU): two ranks started by
+`torch.distributed.run` share the card through gloo (NCCL refuses two ranks
+on one GPU) and run the classifier CLI with --distributed on a small VGG,
+held to one rank's run of the CLI, while this process joins an NCCL group
+of one, reruns the harness's DeepFool with distributed=True (the harness
+phase's results) and times the flagship VGG11-BN's train step in
+DistributedDataParallel; and `discriminator`: K2 against its plain version
+at the 1024-px StyleGAN2 discriminator's 16 blur sites (pads (2, 2) and
+(1, 1), before its stride-2 convolutions), its forward and input gradient
+at batch 4 with K2's 16 and 32 launches, one converted from a
+reference-layout state dict giving the same logits, and a small one on the
+card against the CPU. Every phase prints one JSON line with its elapsed seconds;
 the second-to-last line summarises the kernels (K1 and K2, each in float32
 and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
 (the build included), ends the run with a non-zero exit code and no last
 line. Without a CUDA device it exits non-zero at once. It imports nothing of
-JAX and nothing of the JAX package.
+JAX and nothing of the JAX package. `python3 chip_smoke.py ddp-worker ...`
+is one rank of phase `distributed`.
 """
 
 from __future__ import annotations
@@ -103,9 +116,9 @@ import time
 BUDGET_S = 300.0
 BATCH = 4
 EOT_STEPS = 32
-TIMED_CALLS = 3
-GRAD_CALLS = 2  # timed input-gradient calls of the full flagship, after a warm-up
-KERNEL_REPS = 20
+TIMED_CALLS = 2
+GRAD_CALLS = 1  # timed input-gradient calls of the full flagship, after a warm-up
+KERNEL_REPS = 10
 # float32 kernel vs plain: both sum 25 products in float32 in another order
 K1_TOL = 1e-5
 # whole defense on the GPU vs on the CPU: ~50 layers of float32 convolutions
@@ -188,7 +201,7 @@ ALPHA_GP_TOL = 1e-3
 # of a small VGG on the card against the CPU, from the same weights and
 # draws (loss, gradients, parameters, running statistics; relative)
 TRAIN_SEED = 7
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 TRAIN_NVAE_BATCH = 16
 TRAIN_CLF_BATCH = 64
 TRAIN_INPUT_NOISE = 0.03
@@ -212,6 +225,26 @@ TRAIN_AVAE_BATCH = 32
 # and with random weights this gradient agrees only to ~1e-3 between them in
 # float32 (phase grad); a recompute that drew afresh would differ by O(1)
 POLICY_RTOL = 1e-2
+# phase `distributed` (data parallel, core/distributed.py): the harness's
+# DeepFool under an NCCL group of one; the flagship VGG11-BN's train step in
+# DistributedDataParallel at TRAIN_CLF_BATCH; two ranks sharing the card
+# (gloo: NCCL refuses two ranks on one GPU) run the classifier CLI on the
+# train phase's small VGG over DDP_TRAIN images at global batch DDP_BATCH
+# (2 steps), held to one rank's run of the same CLI at the CPU tests'
+# tolerance. A rank's collectives wait at most DDP_TIMEOUT_S for the other.
+DDP_PLAN = (8, "M", 16, "M", 16, "M")
+DDP_IMAGE = 16
+DDP_TRAIN = {"c0": 4, "c1": 4}
+DDP_VALIDATION = {"c0": 3, "c1": 2}  # a ragged last batch of 1 image
+DDP_BATCH = 4
+DDP_TIMEOUT_S = 120
+DDP_RTOL, DDP_ATOL = 2e-3, 1e-4
+# phase `discriminator`: the 1024-px StyleGAN2 discriminator (channel
+# multiplier 2) at batch 4, float32; its K2 blurs before the stride-2
+# convolutions, 2 per ResBlock; a small one on the card against the CPU
+DISC_SIZE = 1024
+DISC_BATCH = 4
+DISC_SMALL = 32
 
 T0 = time.monotonic()
 
@@ -298,6 +331,51 @@ def run_convert_cli(argv) -> None:
     print(json.dumps({"seconds": seconds,
                       "vm_hwm_gib": int(hwm.group(1)) / 2**20 if hwm else None,
                       "sampled_rss_gib": sampled[0] / 2**30 if sampled[0] else None}))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_worker(data: str, out: str, distributed: str = "1") -> None:
+    """The classifier CLI (cli/train_classifier.main) on DDP_PLAN's small
+    VGG on cuda:0, with --distributed under torchrun's gloo group when
+    `distributed` is "1" (two ranks share the card), each rank then writing
+    its history and the time it ended to <out>/rank<r>.json (the ranks share
+    one stdout, where their lines can interleave)."""
+    from pathlib import Path
+
+    import torch
+
+    from gen_adversarial_tpu_torch.cli import train_classifier
+    from gen_adversarial_tpu_torch.core import distributed as dist_util
+    from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+    from gen_adversarial_tpu_torch.train import classifier
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if distributed == "1":
+        dist_util.maybe_initialize(backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    make = classifier.make_classifier
+    classifier.make_classifier = lambda t, n, device: VGG11BN(n, plan=DDP_PLAN, device=device)
+    try:
+        _, history = train_classifier.main(
+            ["--data-path", data, "--model-type", "vgg", "--n-classes", "2",
+             "--cumulative-bs", str(DDP_BATCH), "--image-size", str(DDP_IMAGE), "--epochs", "1",
+             "--lr", "0.01", "--seed", "3", "--checkpoint-path", out, "--device", "cuda:0"]
+            + (["--distributed"] if distributed == "1" else []))
+    finally:
+        classifier.make_classifier = make
+    if distributed == "1":
+        rank = dist_util.process_shard()[0]
+        torch.distributed.destroy_process_group()
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / f"rank{rank}.json").write_text(
+            json.dumps({"history": history, "ended": time.time()}))
 
 
 # the converter CLI in a process of its own, as a user runs it
@@ -568,19 +646,19 @@ def main() -> int:
     # normalized, times the factor 2 of an up-convolution
     taps = tuple(2.0 * t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
 
-    def k2_rows(sites, n):
+    def k2_rows(sites, n, pad=BLUR_PAD, taps=taps):
         """K2 against its plain version at each (C, H_in) of `sites` on a
-        batch of n, timed with the plain version, the library call, a copy of
-        the same bytes and the bound; the plain version at K2_SLOW_REPS
-        launches, the library call at LIBRARY_REPS."""
+        batch of n at `pad` (symmetric), timed with the plain version, the
+        library call, a copy of the same bytes and the bound; the plain
+        version at K2_SLOW_REPS launches, the library call at LIBRARY_REPS."""
         kf = torch.tensor(taps[::-1], device=dev)
         rows = []
         for c, h in sites:
             x = torch.randn(n, c, h, h, device=dev, generator=gen).contiguous(
                 memory_format=torch.channels_last)
-            y = k2.upfirdn_blur(x, taps, BLUR_PAD)
+            y = k2.upfirdn_blur(x, taps, pad)
             torch.cuda.synchronize()
-            plain = k2.blur_plain(x, taps, BLUR_PAD)
+            plain = k2.blur_plain(x, taps, pad)
             err = (y - plain).abs().max().item()
             scale = max(1.0, plain.abs().max().item())
             del plain
@@ -588,12 +666,12 @@ def main() -> int:
                 raise RuntimeError(f"K2 disagrees with its plain version at C={c} H={h}: "
                                    f"max abs err {err} > {K2_TOL * scale}")
             w2d = torch.outer(kf, kf).expand(c, 1, len(taps), len(taps)).contiguous()
-            ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
-            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), K2_SLOW_REPS,
+            ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, pad))
+            plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, pad), K2_SLOW_REPS,
                                warmup=1)
-            # at pad (1, 1) one depthwise convolution with the 2-D taps is the
-            # same function
-            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
+            # at a symmetric pad one depthwise convolution with the 2-D taps
+            # is the same function
+            library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=pad[0], groups=c),
                                  LIBRARY_REPS)
             copy = torch.empty_like(x)
             copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
@@ -601,7 +679,7 @@ def main() -> int:
             bytes_moved = (x.numel() + y.numel()) * 4
             bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
                                  y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S)
-            rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n,
+            rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n, "pad": list(pad),
                          "per_decode": 1, "elements_in": x.numel(),
                          "max_abs_err": err, "tol": K2_TOL * scale, "kernel_ms": ms,
                          "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1536,8 +1614,54 @@ def main() -> int:
     scratch = tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch")
     shared = {}  # what the harness phase leaves to the alpha_search phase
 
+    # phase `distributed`'s two ranks (each about 8 s to reach the card, then
+    # import, rendezvous and two small steps) run while the harness phase
+    # works on the host: started there, collected by `distributed`
+    ddp_ranks = {}
+
+    def start_ddp_ranks():
+        import os
+
+        import numpy as np
+        from gen_adversarial_tpu_torch.core.distributed import TORCHRUN_ENV
+        from gen_adversarial_tpu_torch.data import png
+
+        tmp = Path(scratch.name) / "ddp"
+        rng = np.random.RandomState(TRAIN_SEED)
+        for split, counts in (("train", DDP_TRAIN), ("validation", DDP_VALIDATION)):
+            for cls, count in counts.items():
+                for i in range(count):
+                    png.write(tmp / "data" / split / cls / f"{i}.png",
+                              (rng.rand(DDP_IMAGE, DDP_IMAGE, 3) * 255).astype(np.uint8))
+        env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_ENV}
+        ddp_ranks.update(dir=tmp, t0=time.time(), process=subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+             "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+             "--master-port", str(_free_port()), str(root / "chip_smoke.py"), "ddp-worker",
+             str(tmp / "data"), str(tmp / "two")],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True))
+
+    def stop_ddp_ranks() -> str:
+        """The ranks' output once they have ended (their process group
+        killed if they outlast DDP_TIMEOUT_S); '' if none was started."""
+        import os
+        import signal
+
+        ranks = ddp_ranks.pop("process", None)
+        if ranks is None:
+            return ""
+        try:
+            stdout, _ = ranks.communicate(timeout=DDP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(ranks.pid, signal.SIGKILL)
+            stdout, _ = ranks.communicate()
+        ddp_ranks["returncode"] = ranks.returncode
+        return stdout
+
     def harness_phase():
         # the evaluation entry points on the float32 flagship, from files
+        start_ddp_ranks()
         import re
         from functools import partial
 
@@ -2427,15 +2551,232 @@ def main() -> int:
                                f"{out['gpu_vs_cpu']}")
         return out
 
+    def distributed_phase():
+        # data parallel (core/distributed.py): the two gloo ranks sharing the
+        # card, started by the harness phase, have run the classifier CLI;
+        # this process, in an NCCL group of one, reruns the harness's
+        # DeepFool with distributed=True (before alpha_search writes the
+        # loaded defense's alphas), times the flagship VGG11-BN's step in
+        # DDP, and runs the CLI as one rank, which the two ranks' result is
+        # held to
+        import os
+
+        import numpy as np
+        from gen_adversarial_tpu_torch.core import distributed as dist_util
+        from gen_adversarial_tpu_torch.core.checkpoint import load_variables
+        from gen_adversarial_tpu_torch.core.init import flax_init_
+        from gen_adversarial_tpu_torch.eval.harness import run_benchmark
+        from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+        from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
+        from gen_adversarial_tpu_torch.train import classifier as train_clf
+
+        out = {"nvidia_smi": device_info["nvidia_smi"]}
+        tmp = ddp_ranks["dir"]
+        try:
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+                              WORLD_SIZE="1", LOCAL_RANK="0")
+            t = time.monotonic()
+            several = dist_util.maybe_initialize(timeout_s=DDP_TIMEOUT_S)
+            out["nccl_init_s"] = time.monotonic() - t
+            out["backend"] = torch.distributed.get_backend()
+            if several or out["backend"] != "nccl":
+                raise RuntimeError(f"expected an NCCL group of one: {out['backend']}, "
+                                   f"{torch.distributed.get_world_size()} processes")
+
+            # the harness phase's DeepFool, as the rank of a group of one
+            reset_counts()
+            t = time.monotonic()
+            results = run_benchmark(shared["loaded"], str(shared["images"]),
+                                    str(tmp / "results"), batch_size=HARNESS_BATCH,
+                                    seed=HARNESS_SEED, attack_filter="deepfool",
+                                    plots=False, log_fn=lambda s: None, distributed=True)
+            out["run_benchmark_s"] = time.monotonic() - t
+            out["k1_launches"] = k1.launches
+            want, got = harness["results"]["DeepFool"], results["DeepFool"]
+            out["deepfool"] = {"got": got, "want": want, "identical": got == want,
+                               "max_abs_diff": max(abs(a - b) for a, b in zip(got, want))}
+            # the same draws; the attack's gradients may run other cuDNN
+            # algorithms than in the harness phase
+            if len(got) != len(want) or any(abs(a - b) > ATTACK_TOL * abs(b)
+                                            for a, b in zip(got, want)) \
+                    or results["Clean"] != harness["results"]["Clean"] or not k1.launches:
+                raise RuntimeError(f"distributed DeepFool {got}, clean {results['Clean']}; "
+                                   f"the harness phase's {want}, {harness['results']['Clean']}")
+
+            # the flagship VGG11-BN's train step in DDP
+            gen_v = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+            clf = flax_init_(VGG11BN(100, device=dev), gen_v).to(
+                memory_format=torch.channels_last)
+            state = train_clf.create_train_state(clf, 0.01)
+            state.ddp = dist_util.wrap_ddp(clf)
+            batch = {"image": torch.rand((TRAIN_CLF_BATCH, 64, 64, 3), generator=gen_v,
+                                         device=dev),
+                     "label": torch.randint(0, 100, (TRAIN_CLF_BATCH,), generator=gen_v,
+                                            device=dev)}
+            torch.cuda.reset_peak_memory_stats()
+            seconds, losses = [], []
+            for i in range(1 + TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                losses.append(float(train_clf.train_step(
+                    state, batch, position_generator(dev, TRAIN_SEED, i))))
+                torch.cuda.synchronize()
+                seconds.append(time.monotonic() - t)
+            out["vgg_ddp"] = {"batch": TRAIN_CLF_BATCH, "losses": losses, "step_s": seconds,
+                              "s_per_step": sum(seconds[1:]) / TRAIN_STEPS,
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"VGG training in DDP: losses {losses}")
+            del clf, state, batch
+
+            # one rank's run of the same CLI, in this process
+            t = time.monotonic()
+            ddp_worker(str(tmp / "data"), str(tmp / "one"), "0")
+            out["one_rank_s"] = time.monotonic() - t
+        finally:
+            stdout = stop_ddp_ranks()
+            if dist_util.initialized():
+                torch.distributed.destroy_process_group()
+            for key in dist_util.TORCHRUN_ENV:
+                os.environ.pop(key, None)
+        reports = [tmp / "two" / f"rank{r}.json" for r in range(2)]
+        if ddp_ranks["returncode"] != 0 or not all(p.exists() for p in reports):
+            raise RuntimeError(f"the two ranks: exit {ddp_ranks['returncode']}:\n"
+                               + "\n".join(stdout.splitlines()[-30:]))
+        reports = [json.loads(p.read_text()) for p in reports]
+        # from the launch to the last rank's end, while the harness phase ran
+        out["two_ranks"] = {"started_in": "harness",
+                            "wall_s": max(r["ended"] for r in reports) - ddp_ranks["t0"]}
+        if not reports[0]["history"] or reports[0]["history"] != reports[1]["history"]:
+            raise RuntimeError(f"the two ranks' histories differ: {reports}")
+        one, _ = load_variables(tmp / "one" / "last.msgpack")
+        two, _ = load_variables(tmp / "two" / "last.msgpack")
+        one, two = dict(_leaves(one)), dict(_leaves(two))
+        errors = {"/".join(k): float(np.max(np.abs(two[k] - v) - DDP_RTOL * np.abs(v)))
+                  for k, v in one.items()}
+        out["two_ranks"].update(history=reports[0]["history"], leaves=len(one),
+                                worst_excess=max(errors.values()), atol=DDP_ATOL,
+                                rtol=DDP_RTOL,
+                                max_abs_diff=max(float(np.max(np.abs(two[k] - v)))
+                                                 for k, v in one.items()))
+        if sorted(one) != sorted(two) or max(errors.values()) > DDP_ATOL:
+            raise RuntimeError(f"two ranks' parameters differ from one rank's: "
+                               f"{out['two_ranks']}")
+        return out
+
+    def discriminator_phase():
+        # the 1024-px StyleGAN2 discriminator: K2 at its 16 blur sites against
+        # the plain version, forward and input gradient at full width with
+        # K2's launches counted, a small one on the card against the CPU,
+        # and one converted from a reference-layout state dict
+        from gen_adversarial_tpu_torch.core.convert import from_jax_variables, to_jax_variables
+        from gen_adversarial_tpu_torch.core.stylegan_convert import convert_discriminator
+        from gen_adversarial_tpu_torch.flagship import random_init_
+        from gen_adversarial_tpu_torch.gender import init_stylegan_tensor_
+        from gen_adversarial_tpu_torch.models.stylegan2.discriminator import Discriminator
+        from gen_adversarial_tpu_torch.models.stylegan2.generator import generator_channels
+        from tests.torch_reference_layout import discriminator_state_dict
+
+        out = {"nvidia_smi": device_info["nvidia_smi"], "size": DISC_SIZE,
+               "batch": DISC_BATCH, "dtype": "float32"}
+        ch = generator_channels(2)
+        # each ResBlock at resolution r blurs its conv1 output (pad (2, 2))
+        # and its input (pad (1, 1)), both ch[r] channels at r x r
+        sites = [(ch[2 ** i], 2 ** i) for i in range(int(math.log2(DISC_SIZE)), 2, -1)]
+        disc_taps = tuple(t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
+        out["k2"] = {"taps": list(disc_taps),
+                     "pad_2": k2_rows(sites, DISC_BATCH, (2, 2), disc_taps),
+                     "pad_1": k2_rows(sites, DISC_BATCH, (1, 1), disc_taps)}
+
+        gen_d = torch.Generator(device=dev).manual_seed(COMPETITOR_SEED)
+        disc = random_init_(Discriminator(DISC_SIZE, device=dev), gen_d, init_stylegan_tensor_)
+        disc.requires_grad_(False)
+        out["parameters_m"] = sum(p.numel() for p in disc.parameters()) / 1e6
+        x = torch.rand((DISC_BATCH, 3, DISC_SIZE, DISC_SIZE), generator=gen_d,
+                       device=dev) * 2 - 1
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # counts from here on are this path's
+        times = []
+        with torch.no_grad():
+            for _ in range(1 + TIMED_CALLS):
+                t = time.monotonic()
+                logits = disc(x)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t)
+        forward_launches = k2.launches
+        out["forward"] = {"call_s": times, "k2_launches": forward_launches,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        grad_times = []
+        for _ in range(1 + GRAD_CALLS):
+            xg = x.clone().requires_grad_(True)
+            t = time.monotonic()
+            grad, = torch.autograd.grad(disc(xg).sum(), xg)
+            torch.cuda.synchronize()
+            grad_times.append(time.monotonic() - t)
+        grad_launches = k2.launches
+        out["input_grad"] = {"call_s": grad_times, "k2_launches": grad_launches,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        per = 2 * len(sites)
+        if tuple(logits.shape) != (DISC_BATCH, 1) or not torch.isfinite(logits).all() \
+                or not torch.isfinite(grad).all() or grad.shape != x.shape:
+            raise RuntimeError(f"logits {tuple(logits.shape)}, gradient {tuple(grad.shape)}")
+        if forward_launches != per * (1 + TIMED_CALLS) \
+                or grad_launches != 2 * per * (1 + GRAD_CALLS):
+            raise RuntimeError(f"K2 launched {forward_launches} times in {1 + TIMED_CALLS} "
+                               f"forwards and {grad_launches} in {1 + GRAD_CALLS} input "
+                               f"gradients, expected {per} and {2 * per} each")
+
+        # converted from the reference's layout: the same logits
+        t = time.monotonic()
+        sd = discriminator_state_dict(to_jax_variables(disc)["params"], DISC_SIZE)
+        loaded = Discriminator(DISC_SIZE, device=dev)
+        from_jax_variables(convert_discriminator(sd, DISC_SIZE), loaded)
+        out["conversion_s"] = time.monotonic() - t
+        with torch.no_grad():
+            err = (loaded(x) - logits).abs().max().item()
+        # the same weights through the same kernels: equal up to cuDNN's
+        # choice of algorithm
+        tol = 1e-6 * max(1.0, logits.abs().max().item())
+        out["converted"] = {"max_abs_err": err, "tol": tol, "keys": len(sd)}
+        if not err <= tol:
+            raise RuntimeError(f"the converted discriminator's logits differ by {err}")
+        del disc, loaded, x, xg, grad, sd
+
+        # a small one on the card against the CPU: logits and input gradient
+        cpu_gen = torch.Generator().manual_seed(COMPETITOR_SEED)
+        small = random_init_(Discriminator(DISC_SMALL, device="cpu"), cpu_gen,
+                             init_stylegan_tensor_).requires_grad_(False)
+        xs = torch.rand((DISC_BATCH, 3, DISC_SMALL, DISC_SMALL), generator=cpu_gen) * 2 - 1
+        results = {}
+        for where, model in (("cpu", small), ("cuda", copy.deepcopy(small).to(dev))):
+            xw = xs.to(where).requires_grad_(True)
+            y = model(xw)
+            g, = torch.autograd.grad(y.sum(), xw)
+            results[where] = (y.detach().cpu(), g.cpu())
+        (want_y, want_g), (got_y, got_g) = results["cpu"], results["cuda"]
+        errs = {"logits": ((got_y - want_y).abs().max() / want_y.abs().max()).item(),
+                "input_grad": ((got_g - want_g).abs().max() / want_g.abs().max()).item()}
+        out["small_gpu_vs_cpu"] = {"size": DISC_SMALL, **errs, "tol": PARITY_RTOL}
+        if not all(math.isfinite(e) and e <= PARITY_RTOL for e in errs.values()):
+            raise RuntimeError(f"the small discriminator on the card differs: {errs}")
+        return out
+
     try:
         harness = run_phase("harness", harness_phase)
+        run_phase("distributed", distributed_phase)
+        torch.cuda.empty_cache()
         alpha = run_phase("alpha_search", alpha_search_phase)
         train = run_phase("train", train_phase)
         torch.cuda.empty_cache()
         competitors = run_phase("competitors", competitors_phase)
         torch.cuda.empty_cache()
         train_competitors = run_phase("train_competitors", train_competitors_phase)
+        torch.cuda.empty_cache()
+        disc = run_phase("discriminator", discriminator_phase)
     finally:
+        stop_ddp_ranks()
         shared.clear()
         scratch.cleanup()
 
@@ -2478,6 +2819,11 @@ def main() -> int:
                              per_decode("gender", n_gender), "gender", mean_call_s(gender))
     k2_cars = path_numbers(kernels2_cars["shapes"], cars_run["k2_launches"],
                            per_decode("cars", n_cars), "cars", mean_call_s(cars_run))
+    k2_disc = path_numbers(disc["k2"]["pad_2"] + disc["k2"]["pad_1"],
+                           disc["forward"]["k2_launches"],
+                           f"one forward of the {DISC_SIZE}-px discriminator at batch "
+                           f"{DISC_BATCH}: the sum over its launches", "discriminator",
+                           mean_call_s(disc["forward"]))
     k1_16 = path_numbers(kernels16["k1"]["shapes"], run16["flagship"]["k1_launches"],
                          per_decode("ids", n), "flagship", mean_call_s(run16["flagship"]))
     k2_16_gender = path_numbers(kernels16["k2"]["shapes"], run16["gender"]["k2_launches"],
@@ -2505,20 +2851,27 @@ def main() -> int:
                                "alpha_search": alpha["k1_launches"],
                                "train": train["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
-        # `max_abs_err` cover both paths, and `cars` holds the cars path's
+        # `max_abs_err` cover the three paths, `cars` and `discriminator`
+        # hold the other two's (the discriminator's blurs at pads (2, 2)
+        # and (1, 1), the library call at the same padding)
         entry("upfirdn_blur", "float32", k2.SOURCE,
               "gen_adversarial_tpu/ops/pallas_upfirdn.py:115",
-              "torch.nn.functional.conv2d(outer(kf, kf), padding=1, groups=C)",
-              **{**k2_gender, "launches": k2_gender["launches"] + k2_cars["launches"],
-                 "max_abs_err": max(k2_gender["max_abs_err"], k2_cars["max_abs_err"])},
+              "torch.nn.functional.conv2d(outer(kf, kf), padding=pad, groups=C)",
+              **{**k2_gender, "launches": k2_gender["launches"] + k2_cars["launches"]
+                 + k2_disc["launches"],
+                 "max_abs_err": max(k2_gender["max_abs_err"], k2_cars["max_abs_err"],
+                                    k2_disc["max_abs_err"])},
               launches_by_path={"gender": k2_gender["launches"],
-                                "cars": k2_cars["launches"]},
+                                "cars": k2_cars["launches"],
+                                "discriminator": k2_disc["launches"]},
               device_ms=device_ms("gender", "busy_f32", "k2_upfirdn_blur"),
-              cars=k2_cars,
-              # launches in phase attack_remat (forward, recompute and backward)
+              cars=k2_cars, discriminator=k2_disc,
+              # launches in phase attack_remat (forward, recompute and
+              # backward) and in the discriminator's input gradients
               attack_launches={
                   "gender_apgd_ce": attack_rm["gender_apgd_ce"]["k2_launches"],
-                  "cars_input_grad": attack_rm["cars_input_grad"]["k2_launches"]}),
+                  "cars_input_grad": attack_rm["cars_input_grad"]["k2_launches"],
+                  "discriminator_input_grad": disc["input_grad"]["k2_launches"]}),
         # the bfloat16 builds: launches in phase bf16
         # (the three forwards) and attack_bf16; times at the flagship's,
         # gender's and cars' shapes; K1's `ms` with the float32 weights the
@@ -2550,4 +2903,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ddp-worker"]:  # one rank of phase `distributed`
+        sys.exit(ddp_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -11,6 +11,17 @@ Usage:
 The config's checkpoint paths point at flax msgpack files (written by either
 package's `save_variables`); the images are a folder of class folders.
 It runs on one CUDA device unless --device cpu is given.
+
+Data parallel, one process per GPU (the reference's DistributedSampler
+shards):
+
+  torchrun --nproc-per-node 4 -m gen_adversarial_tpu_torch.cli.test_defense \
+      ... --distributed
+
+Each rank evaluates its round-robin shard of the images; the per-image
+results are gathered in rank order and rank 0 writes results.json and the
+plots (eval/harness.run_benchmark). --n-devices > 1 in one process raises,
+naming that command.
 """
 
 from __future__ import annotations
@@ -41,11 +52,18 @@ def main(argv: list[str] | None = None) -> dict:
                    help="ignore any per-batch progress file (progress_p*.json) and restart "
                         "the eval from image 0")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="more than one device is not ported yet (raises)")
+                   help="more than one raises: run one process per GPU under torchrun")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process runs are not ported yet (raises)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+                   help="data parallel over torchrun's processes, one GPU each")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     args = p.parse_args(argv)
+
+    from gen_adversarial_tpu_torch.core import distributed as dist_util
+
+    dist_util.check_n_devices(args.n_devices, "gen_adversarial_tpu_torch.cli.test_defense")
+    if args.distributed:
+        dist_util.maybe_initialize()
 
     from gen_adversarial_tpu_torch.eval.factory import load_defense
     from gen_adversarial_tpu_torch.eval.harness import run_benchmark

@@ -11,11 +11,22 @@ trades/fine_tune_classifier.py entry point).
 experiment's (VGG11-BN for ids, ResNet50 for gender, ResNeXt50 for cars),
 read from a flax msgpack file. Each epoch shuffles with seed + epoch; step
 s's inner-loop draws come from a generator seeded (seed, s). It runs on one
-CUDA device unless --device cpu is given; --n-devices > 1 and --distributed
-raise (multi-GPU is not ported yet). <out>/last.msgpack is the fine-tuned
-classifier's flax tree (meta experiment and recipe), which the JAX
-package's `load_variables` and the port's `load_defense` (a trades_*
+CUDA device unless --device cpu is given. <out>/last.msgpack is the
+fine-tuned classifier's flax tree (meta experiment and recipe), which the
+JAX package's `load_variables` and the port's `load_defense` (a trades_*
 config) read.
+
+Data parallel, one process per GPU (the reference's torchrun DDP
+fine-tuner, trades/fine_tune_classifier.py:82,239):
+
+  torchrun --nproc-per-node 4 -m gen_adversarial_tpu_torch.cli.trades_finetune \
+      ... --distributed
+
+--cumulative-bs is the global batch; each rank decodes its part of it,
+draws the inner PGD's start for the whole batch and keeps its rows, and
+DistributedDataParallel averages the gradients (train/classifier.py's
+skeleton). Rank 0 alone logs and writes last.msgpack. --n-devices > 1 in one
+process raises, naming that command.
 """
 
 from __future__ import annotations
@@ -37,12 +48,20 @@ def main(argv: list[str] | None = None):
     p.add_argument("--out", required=True)
     p.add_argument("--n-devices", type=int, default=None)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallel (not ported: raises)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+                   help="data parallel over torchrun's processes, one GPU each")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     args = p.parse_args(argv)
-    if (args.n_devices or 1) > 1 or args.distributed:
-        raise NotImplementedError("the port's TRADES fine-tuner runs on one device: "
-                                  "multi-GPU training is not ported yet")
+
+    from gen_adversarial_tpu_torch.core import distributed as dist_util
+
+    dist_util.check_n_devices(args.n_devices, "gen_adversarial_tpu_torch.cli.trades_finetune")
+    if args.distributed:
+        dist_util.maybe_initialize()
+    pid, n_proc = dist_util.data_parallel_shard(args.distributed, "cli.trades_finetune")
+    if args.cumulative_bs % n_proc:
+        raise SystemExit(f"--cumulative-bs {args.cumulative_bs} is not divisible by "
+                         f"{n_proc} processes")
 
     import torch
 
@@ -52,7 +71,8 @@ def main(argv: list[str] | None = None):
     from gen_adversarial_tpu_torch.core.runlog import RunLog, param_summary
     from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset, iterate_batches
     from gen_adversarial_tpu_torch.eval import factory
-    from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
+    from gen_adversarial_tpu_torch.models.nvae.distributions import (
+        SlicedDraws, position_generator)
     from gen_adversarial_tpu_torch.train.classifier import create_train_state
     from gen_adversarial_tpu_torch.train.trades import TRADES_RECIPES, make_trades_train_step
 
@@ -60,24 +80,30 @@ def main(argv: list[str] | None = None):
     model, _ = factory.load_classifier_parts(args.experiment, args.classifier_path, device)
     model.requires_grad_(True)
     state = create_train_state(model, args.lr)
+    if args.distributed:
+        state.ddp = dist_util.wrap_ddp(model)
     recipe = TRADES_RECIPES[args.experiment]
     step = make_trades_train_step(beta=recipe["beta"], epsilon=recipe["epsilon"])
 
     tds = ImageLabelDataset(f"{args.data_path}/train", IMAGE_SIZE[args.experiment])
-    log = RunLog(Path(args.out) / "log.txt")
+    log = RunLog(Path(args.out) / "log.txt") if pid == 0 else (lambda s: None)
     log(param_summary(model, factory.CLASSIFIER_TYPE[args.experiment]))
     gstep = 0
     for epoch in range(args.epochs):
         losses = []
         for batch in iterate_batches(tds, args.cumulative_bs, shuffle=True,
-                                     seed=args.seed + epoch):
-            losses.append(step(state, batch, position_generator(device, args.seed, gstep)))
+                                     seed=args.seed + epoch, batch_slice=(pid, n_proc)):
+            draws = SlicedDraws(position_generator(device, args.seed, gstep), (pid, n_proc))
+            losses.append(step(state, batch, draws))
             gstep += 1
-        log(f"[epoch {epoch + 1}/{args.epochs}] trades loss "
-            f"{float(torch.stack(losses).mean()) if losses else float('nan'):.4f}")
+        loss = torch.stack(losses).mean() if losses else torch.full((), float("nan"), device=device)
+        if n_proc > 1:
+            torch.distributed.all_reduce(loss)
+        log(f"[epoch {epoch + 1}/{args.epochs}] trades loss {float(loss) / n_proc:.4f}")
 
-    save_variables(Path(args.out) / "last.msgpack", to_jax_variables(state.model.eval()),
-                   {"experiment": args.experiment, "trades": recipe})
+    if pid == 0:
+        save_variables(Path(args.out) / "last.msgpack", to_jax_variables(state.model.eval()),
+                       {"experiment": args.experiment, "trades": recipe})
     return state
 
 

@@ -9,12 +9,20 @@ Usage:
       --checkpoint-path ckpts/gender [--device cuda]
 
 `--data-path` holds train/ and validation/ folders of class folders. It runs
-on one CUDA device unless --device cpu is given; --n-devices > 1 and
---distributed raise (multi-GPU is not ported yet). The trained model is
+on one CUDA device unless --device cpu is given. The trained model is
 written to <checkpoint-path>/last.msgpack as the flax variable tree
 (`core/checkpoint.save_variables`; meta model_type, n_classes, history),
 which the JAX package's `load_variables` and the port's `load_defense`
 read; periodic train states go to <checkpoint-path>/step_NNNNNNNN/.
+
+Data parallel, one process per GPU (the reference's torchrun DDP trainer):
+
+  torchrun --nproc-per-node 4 -m gen_adversarial_tpu_torch.cli.train_classifier \
+      ... --distributed
+
+--cumulative-bs is the global batch (train/classifier.fit); rank 0 alone
+logs and writes the files. --n-devices > 1 in one process raises, naming
+that command.
 """
 
 from __future__ import annotations
@@ -61,9 +69,16 @@ def main(argv: list[str] | None = None):
                    help="path to a torchvision ImageNet state dict (.pt); "
                         "initializes the backbone from it with a fresh projector head")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallel (not ported: raises)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+                   help="data parallel over torchrun's processes, one GPU each")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     args = p.parse_args(argv)
+
+    from gen_adversarial_tpu_torch.core import distributed as dist_util
+
+    dist_util.check_n_devices(args.n_devices, "gen_adversarial_tpu_torch.cli.train_classifier")
+    if args.distributed:
+        dist_util.maybe_initialize()
 
     from gen_adversarial_tpu_torch.core.checkpoint import save_variables
     from gen_adversarial_tpu_torch.core.convert import to_jax_variables
@@ -82,7 +97,7 @@ def main(argv: list[str] | None = None):
                          checkpoint_dir=args.checkpoint_path,
                          init_variables=init_variables, distributed=args.distributed,
                          device=args.device)
-    if args.checkpoint_path:
+    if args.checkpoint_path and (not args.distributed or dist_util.is_rank0()):
         save_variables(Path(args.checkpoint_path) / "last.msgpack",
                        to_jax_variables(state.model),
                        {"model_type": args.model_type, "n_classes": args.n_classes,

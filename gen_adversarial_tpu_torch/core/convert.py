@@ -19,7 +19,9 @@ ModuleList attribute `convs`. Layouts change as flax -> torch needs:
   Dense layers (`linear1`, `linear2`) are Dense kernels as above;
 - the NVAE's `const_prior` NHWC -> NCHW;
 - StyleGAN2: `EqualLinear.weight` (in, out) -> (out, in),
-  `ModulatedConv2d.weight` HWIO -> OIHW, the generator's `const_input`
+  `ModulatedConv2d.weight` and the discriminator's `EqualConv2d.weight`
+  HWIO -> OIHW (its `bias` and `ConvLayer.activate_bias` as they are), the
+  generator's `const_input`
   (1, 4, 4, C) -> (1, C, 4, 4), `ToRGB.bias` (1, 1, 1, 3) -> (1, 3, 1, 1),
   the fixed `noise_{i}` maps (collection `noise`) (1, H, W, 1) -> (1, 1, H, W);
   `NoiseInjection.weight`, `activate_bias`, `PReLU.alpha` and `latent_avg`
@@ -132,6 +134,9 @@ _MODULE_LEAVES = {
     ("EqualLinear", "weight"): _t,
     ("EqualLinear", "bias"): _same,
     ("ModulatedConv2d", "weight"): _hwio_to_oihw,
+    ("EqualConv2d", "weight"): _hwio_to_oihw,
+    ("EqualConv2d", "bias"): _same,
+    ("ConvLayer", "activate_bias"): _same,
     ("Generator", "const_input"): _nhwc_to_nchw,
     ("ToRGB", "bias"): _nhwc_to_nchw,
     ("NoiseInjection", "weight"): _same,

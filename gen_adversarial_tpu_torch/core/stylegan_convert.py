@@ -1,10 +1,10 @@
 """Torch state dicts -> flax variable trees for the StyleGAN2 stack, the
 port's copy of gen_adversarial_tpu/core/stylegan_convert.py (numpy only):
 the generator, the E4E encoder and the pSp checkpoint that holds both
-(`convert_psp`: 'encoder.' / 'decoder.' keys and 'latent_avg'), and the
+(`convert_psp`: 'encoder.' / 'decoder.' keys and 'latent_avg'), the
 Style-Transformer checkpoint (`convert_style_transformer`: the same under
-'encoder.module.' / 'decoder.module.'). The trees are the JAX package's, leaf
-for leaf. The discriminator's converter waits for the port's discriminator.
+'encoder.module.' / 'decoder.module.'), and the discriminator
+(`convert_discriminator`). The trees are the JAX package's, leaf for leaf.
 """
 
 from __future__ import annotations
@@ -34,6 +34,13 @@ def _equal_linear(sd, prefix):
 
 def _plain_conv(sd, prefix, bias=True):
     out = {"kernel": np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))}
+    if bias and f"{prefix}.bias" in sd:
+        out["bias"] = sd[f"{prefix}.bias"]
+    return out
+
+
+def _equal_conv(sd, prefix, bias=True):
+    out = {"weight": np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))}
     if bias and f"{prefix}.bias" in sd:
         out["bias"] = sd[f"{prefix}.bias"]
     return out
@@ -76,6 +83,35 @@ def convert_generator(sd: dict, size: int) -> dict:
     for i in range(2 * n_pairs + 1):
         noise[f"noise_{i}"] = np.transpose(sd[f"noises.noise_{i}"], (0, 2, 3, 1))
     return {"params": params, "noise": noise}
+
+
+def _conv_layer(sd, prefix, downsample=False, activate=True, bias=True):
+    """A ConvLayer, an nn.Sequential [Blur]? -> EqualConv2d -> [activation]?:
+    the EqualConv2d sits at index 1 after a downsample Blur (whose fixed
+    kernel buffer is not read), its activation's bias after it."""
+    ci = 1 if downsample else 0
+    out = {"conv": _equal_conv(sd, f"{prefix}.{ci}", bias=bias and not activate)}
+    if activate and bias:
+        out["activate_bias"] = sd[f"{prefix}.{ci + 1}.bias"]
+    return out
+
+
+def convert_discriminator(sd: dict, size: int) -> dict:
+    """A discriminator's state dict (prefix stripped) -> {'params'} of
+    models/stylegan2/discriminator.py."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    params = {"conv_in": _conv_layer(sd, "convs.0")}
+    for n, i in enumerate(range(int(math.log2(size)), 2, -1), start=1):
+        p = f"convs.{n}"
+        params[f"res_{i}"] = {
+            "conv1": _conv_layer(sd, f"{p}.conv1"),
+            "conv2": _conv_layer(sd, f"{p}.conv2", downsample=True),
+            "skip": _conv_layer(sd, f"{p}.skip", downsample=True, activate=False, bias=False),
+        }
+    params["final_conv"] = _conv_layer(sd, "final_conv")
+    params["final_linear0"] = _equal_linear(sd, "final_linear.0")
+    params["final_linear1"] = _equal_linear(sd, "final_linear.1")
+    return {"params": params}
 
 
 def _prelu(sd, prefix):

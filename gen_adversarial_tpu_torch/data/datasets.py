@@ -92,20 +92,27 @@ class ImageNameLabelDataset(ImageLabelDataset):
 def iterate_batches(dataset: ImageLabelDataset, batch_size: int,
                     shuffle: bool = False, seed: int = 0,
                     drop_last: bool = True, prefetch: int = 2,
-                    shard: tuple[int, int] = (0, 1)):
+                    shard: tuple[int, int] = (0, 1),
+                    batch_slice: tuple[int, int] = (0, 1)):
     """Yield dict batches {'image': (B, H, W, C) float32, 'label': (B,) int32}
     in file order, or with shuffle in the order
     `np.random.RandomState(seed).shuffle` gives (the JAX package's), decoded
     by a background thread, `prefetch` batches ahead.
 
     shard = (pid, pcount): every pcount-th image of that order from pid
-    (round robin). A decode error is raised in the consumer."""
+    (round robin; the harness's ranks). batch_slice = (i, n): the i-th
+    contiguous n-th of each batch of that order (the trainers' ranks: every
+    rank walks the same order and decodes only its part of each global
+    batch; a ragged tail may slice empty). A decode error is raised in the
+    consumer."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
     pid, pcount = shard
     order = order[pid::pcount]
     n_batches = len(order) // batch_size if drop_last else -(-len(order) // batch_size)
+    sl, sn = batch_slice
+    hw = (dataset.image_size, dataset.image_size)
 
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
@@ -126,7 +133,9 @@ def iterate_batches(dataset: ImageLabelDataset, batch_size: int,
         try:
             for b in range(n_batches):
                 idx = order[b * batch_size:(b + 1) * batch_size]
-                imgs = np.stack([dataset.load_image(i) for i in idx])
+                idx = idx[sl * len(idx) // sn:(sl + 1) * len(idx) // sn]
+                imgs = (np.stack([dataset.load_image(i) for i in idx]) if len(idx)
+                        else np.zeros((0,) + hw + (3,), np.float32))
                 if not _put({"image": imgs, "label": dataset.labels[idx]}):
                     return
             _put(None)

@@ -27,6 +27,7 @@ from torch import nn
 
 from gen_adversarial_tpu_torch.attacks import autoattack, cw_attack, deepfool_attack
 from gen_adversarial_tpu_torch.core.checkpoint import load_variables
+from gen_adversarial_tpu_torch.core.distributed import local_device
 from gen_adversarial_tpu_torch.core.config import (
     ATTACK_SUITES, IMAGE_SIZE, N_CLASSES, DefenseConfig, defense_type_of, experiment_of)
 from gen_adversarial_tpu_torch.core.convert import from_jax_variables
@@ -126,8 +127,10 @@ def _ours_components(experiment: str, variables: dict, meta: dict, device: torch
 
 
 def resolve_device(device, who: str) -> torch.device:
-    """torch.device(device); 'cuda' without CUDA raises, naming `who`."""
-    device = torch.device(device)
+    """torch.device(device); 'cuda' without CUDA raises, naming `who`.
+    Under torchrun a bare 'cuda' is this process's GPU, cuda:LOCAL_RANK
+    (core/distributed.local_device)."""
+    device = local_device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: device 'cuda' asked for, but CUDA is not available "
                            "(pass device='cpu' to run on the CPU)")

@@ -10,9 +10,15 @@ gen_adversarial_tpu/eval/harness.py):
   the results;
 - every fifth image gets a PNG of original / adversarial / purified with
   red / green success borders and the L2 bound in a title strip;
-- per-batch resume: progress_p0.json holds the results of the finished
+- per-batch resume: progress_p<pid>.json holds the results of the finished
   batches under a fingerprint of the run's setup, and a rerun of the same
-  setup continues after them.
+  setup continues after them;
+- data parallel (distributed=True in a torchrun process group,
+  core/distributed.py): each rank runs its round-robin shard of the images
+  (`iterate_batches(shard=...)`, the reference's DistributedSampler) and
+  keeps its own progress file; the per-image lists are gathered in rank
+  order (the reference's all_gather + cat), and rank 0 alone writes the
+  plots and results.json, before a barrier that all ranks pass.
 
 Random draws: each batch's clean predictions and each attack on it draw
 from a generator on the device seeded from
@@ -36,6 +42,8 @@ import numpy as np
 import torch
 
 from gen_adversarial_tpu_torch.attacks import make_staged_autoattack
+from gen_adversarial_tpu_torch.core.distributed import (
+    allgather_lists, check_n_devices, data_parallel_shard)
 from gen_adversarial_tpu_torch.data import png
 from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset, iterate_batches
 from gen_adversarial_tpu_torch.eval.factory import LoadedDefense
@@ -151,16 +159,15 @@ def run_benchmark(loaded: LoadedDefense, images_path: str, results_folder: str,
     """The benchmark over a folder dataset; returns and writes results.json.
 
     With resume=True (default), the results of every finished batch are
-    written to results_folder/progress_p0.json, and a rerun with the same
+    written to results_folder/progress_p<pid>.json, and a rerun with the same
     setup (the fingerprint) continues from the first unfinished batch; the
     finished run removes the file and merges into results.json.
 
-    One device: n_devices > 1 and distributed=True raise (ROADMAP Queue 1
-    item 5)."""
-    if distributed or (n_devices is not None and n_devices > 1):
-        raise NotImplementedError("n_devices > 1 and distributed runs are not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
-    pid, pcount = 0, 1
+    distributed=True runs this rank's shard of the process group (see the
+    module); every rank returns the gathered results. n_devices > 1 raises:
+    the port's data parallelism is one process per GPU."""
+    check_n_devices(n_devices, "gen_adversarial_tpu_torch.cli.test_defense")
+    pid, pcount = data_parallel_shard(distributed, "eval.harness.run_benchmark")
     dataset = ImageLabelDataset(images_path, loaded.image_size)
     results_folder = Path(results_folder)
     plots_folder = results_folder / "plots"
@@ -178,6 +185,11 @@ def run_benchmark(loaded: LoadedDefense, images_path: str, results_folder: str,
     clean_correct: list = []
     distortions = {name: [] for name in attack_names}
     n_seen = 0
+    # the cap is global: this rank sees its round-robin share of the first
+    # max_images images
+    if max_images is not None:
+        max_images = len(range(pid, max_images, pcount))
+    plots = plots and pid == 0
 
     # anything that changes the batches or their draws invalidates the file
     progress_path = results_folder / f"progress_p{pid}.json"
@@ -261,10 +273,20 @@ def run_benchmark(loaded: LoadedDefense, images_path: str, results_folder: str,
                  "clean_correct": clean_correct, "distortions": distortions}))
             os.replace(tmp, progress_path)  # atomic: never a torn checkpoint
 
+    if pcount > 1:
+        clean_correct = allgather_lists(clean_correct)
+        distortions = {name: allgather_lists(vals) for name, vals in distortions.items()}
+    # removed only after the gather: a rank that dies in it leaves every
+    # rank's finished batches for the rerun
     progress_path.unlink(missing_ok=True)  # run completed (or stale file)
-    results = _merge_results(results_folder / "results.json",
-                             float(np.mean(clean_correct)), distortions)
-    log_fn(f"[results] clean accuracy {results['Clean']:.4f}")
+    results = {"Clean": float(np.mean(clean_correct)),
+               **{ATTACK_JSON_NAMES[n]: v for n, v in distortions.items()}}
+    if pid == 0:
+        results = _merge_results(results_folder / "results.json", results["Clean"],
+                                 distortions)
+        log_fn(f"[results] clean accuracy {results['Clean']:.4f}")
+    if pcount > 1:
+        torch.distributed.barrier()  # every rank returns after results.json exists
     return results
 
 

@@ -56,7 +56,8 @@ def gender_alphas(n_latent: int = len(GENDER_ALPHAS)) -> np.ndarray:
 def init_stylegan_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
                           generator: torch.Generator) -> None:
     """StyleGAN2 / E4E / Style-Transformer tensors at the scales their own
-    inits use: equalized weights at unit variance (the style MLP's at
+    inits use: equalized weights at unit variance (the discriminator's
+    EqualConv2d too; the style MLP's at
     1 / lr_mul), the constant input and the noise maps N(0, 1), modulation
     biases near their init 1; PReLU slopes near 0.25; codes' latent_avg and
     the learned query z N(0, 1); attention projections N(0, 1 / fan_in) with
@@ -67,7 +68,7 @@ def init_stylegan_tensor_(mod: nn.Module, name: str, t: torch.Tensor,
         t.normal_(0.0, 1.0 / mod.lr_mul, generator=generator)
     elif kind == "EqualLinear" and name == "bias":
         t.normal_(mod.bias_init, 0.01, generator=generator)
-    elif kind == "ModulatedConv2d" and name == "weight":
+    elif kind in ("ModulatedConv2d", "EqualConv2d") and name == "weight":
         t.normal_(0.0, 1.0, generator=generator)
     elif kind == "Generator":  # const_input, noise_{i}
         t.normal_(0.0, 1.0, generator=generator)

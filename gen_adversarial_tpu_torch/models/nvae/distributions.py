@@ -89,6 +89,29 @@ class RecordingDraws(Draws):
         return u
 
 
+class SlicedDraws(Draws):
+    """The draws of a global batch, of which this is the i-th of n equal
+    parts (a data-parallel rank's): each draw is made at n times the first
+    dimension asked for, and the part's rows are kept, so that every rank
+    draws what one process would."""
+
+    def __init__(self, source, batch_slice: tuple[int, int]):
+        super().__init__(source)
+        self.part, self.parts = batch_slice
+
+    def _rows(self, draw, shape):
+        b = shape[0]
+        return draw((b * self.parts,) + tuple(shape[1:]))[self.part * b:(self.part + 1) * b]
+
+    def normal(self, shape, like: torch.Tensor) -> torch.Tensor:
+        return self._rows(lambda s: super(SlicedDraws, self).normal(s, like), shape)
+
+    def uniform(self, shape, like: torch.Tensor, low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        return self._rows(lambda s: super(SlicedDraws, self).uniform(s, like, low, high),
+                          shape)
+
+
 def position_generator(device, *position: int) -> torch.Generator:
     """A generator on `device` seeded from np.random.SeedSequence(position):
     the draws of a run's step depend on where it stands, not on what ran

@@ -41,7 +41,8 @@ class StyleTransformer(nn.Module):
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """codes (B, n_styles, 512) -> images (B, 3, 256, 256)."""
-        return adaptive_avg_pool_general(self.decoder(codes), 256, 256)
+        images, _ = self.decoder([codes], input_is_latent=True, randomize_noise=False)
+        return adaptive_avg_pool_general(images, 256, 256)
 
     def style(self, z: torch.Tensor) -> torch.Tensor:
         """The generator's style MLP (new w's for the purify mix)."""

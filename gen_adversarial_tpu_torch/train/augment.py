@@ -101,11 +101,17 @@ def apply_augment(images: torch.Tensor, params: dict) -> torch.Tensor:
     return pick(params["grayscale"], torch.stack([gray] * 3, -1), img)
 
 
-def train_augment(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def train_augment(images: torch.Tensor, generator: torch.Generator,
+                  batch_slice: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Per-sample augmentations + Normalize(0.5, 0.5); images (B, H, W, C)
-    in [0, 1]."""
-    out = apply_augment(images, draw_augment(generator, images.shape[0]))
-    return (out - 0.5) / 0.5
+    in [0, 1]. batch_slice = (i, n): the images are the i-th of n equal
+    parts of a global batch (a data-parallel rank's); the draws are the
+    global batch's, and the part's are kept, so that every rank augments
+    as one process would."""
+    i, n = batch_slice
+    b = images.shape[0]
+    params = {k: v[i * b:(i + 1) * b] for k, v in draw_augment(generator, b * n).items()}
+    return (apply_augment(images, params) - 0.5) / 0.5
 
 
 def eval_normalize(images: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,10 @@ def make_trades_train_step(beta: float, epsilon: float,
     PGD against the model in eval mode (its draws from `draws`), then CE +
     beta x KL(adv || natural) / B from two training-mode forwards (natural,
     then adversarial: the second starts from the running statistics the
-    first left), one SGD step on the model in `state`."""
+    first left), one SGD step on the model in `state`. In a data-parallel
+    run (`state.ddp`) the inner PGD runs on the plain module and the
+    training forwards through the wrapper; `draws` are then a rank's part
+    of the global batch's (models/nvae/distributions.SlicedDraws)."""
 
     def train_step(state: TrainState, batch: dict, draws) -> torch.Tensor:
         model = state.model
@@ -43,9 +46,9 @@ def make_trades_train_step(beta: float, epsilon: float,
         x_adv = trades_inner_l2(lambda inp: model(_nchw(inp)), draws, x, epsilon,
                                 perturb_steps, normalization_function=_norm)
         x_adv = torch.clamp(x_adv, 0.0, 1.0).detach()
-        model.train()
-        logits_nat = model(_nchw(_norm(x)))
-        logits_adv = model(_nchw(_norm(x_adv)))
+        net = state.net.train()
+        logits_nat = net(_nchw(_norm(x)))
+        logits_adv = net(_nchw(_norm(x_adv)))
         loss_robust = kl_div_sum(F.log_softmax(logits_adv, dim=1),
                                  F.softmax(logits_nat, dim=1)) / x.shape[0]
         loss = F.cross_entropy(logits_nat, y) + beta * loss_robust

@@ -38,7 +38,11 @@ def test_main_writes_results_json(args, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--distributed"]])
 def test_multi_device_flags_raise(args, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    """Several devices in one process, or --distributed outside torchrun,
+    refuse and name the torchrun command (the port's data parallelism is
+    one process per GPU)."""
+    error = ValueError if "--n-devices" in flags else SystemExit
+    with pytest.raises(error, match="torchrun --nproc-per-node"):
         main(args + ["--device", "cpu"] + flags)
 
 

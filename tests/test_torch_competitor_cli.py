@@ -205,7 +205,8 @@ def test_train_ndvae_cli_writes_what_jax_reads(tmp_path, monkeypatch):
 def test_trades_finetune_cli_writes_what_jax_reads(tmp_path, monkeypatch):
     """One epoch of TRADES on a tiny VGG (the ids recipe: eps 2.0, beta 1.0,
     16 inner steps) over 8 images at 64 px; the JAX VGG on the written tree
-    gives the port's logits. --n-devices 2 and --distributed raise."""
+    gives the port's logits. --n-devices 2 and --distributed outside
+    torchrun refuse, naming the torchrun command."""
     patch_tiny_classifier(monkeypatch)
     _folder(tmp_path / "data" / "train", 4, 64, 0)
     clf = JaxVGG(n_classes=100, plan=TINY_PLAN)
@@ -227,6 +228,6 @@ def test_trades_finetune_cli_writes_what_jax_reads(tmp_path, monkeypatch):
     with torch.no_grad():
         got = state.model.eval()(((torch.tensor(x) - 0.5) / 0.5).permute(0, 3, 1, 2))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
-    for extra in (["--n-devices", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="one device"):
+    for extra, error in ((["--n-devices", "2"], ValueError), (["--distributed"], SystemExit)):
+        with pytest.raises(error, match="torchrun --nproc-per-node"):
             trades_finetune.main(args + extra)

@@ -12,7 +12,8 @@ its dict back into the tree. Then the port's converter gives the JAX
 converter's tree leaf for leaf, exactly (the same paths, values and dtypes),
 for each kind: the classifier as VGG and ResNet, the NVAE with and without
 flow cells and in each weight-norm form, E4E (pSp), the Style-Transformer,
-the A-VAE and the ND-VAE (its unsaved constant `h` drawn as JAX draws it).
+the A-VAE, the ND-VAE (its unsaved constant `h` drawn as JAX draws it) and
+the StyleGAN2 discriminator.
 The CLI writes the JAX tool's file and meta from the same `.pt`, for the six
 kinds, and `load_defense` reads an ids config whose NVAE and VGG files the
 port's CLI wrote."""
@@ -42,6 +43,7 @@ from gen_adversarial_tpu.models.nvae.cells import make_ar_mask
 from gen_adversarial_tpu.models.nvae.model import NVAE as JaxNVAE
 from gen_adversarial_tpu.models.nvae.model import NVAEConfig as JaxNVAEConfig
 from gen_adversarial_tpu.models.style_transformer.model import StyleTransformer as JaxTrans
+from gen_adversarial_tpu.models.stylegan2.discriminator import Discriminator as JaxDiscriminator
 from gen_adversarial_tpu_torch.cli import convert_checkpoints as cli
 from gen_adversarial_tpu_torch.core import avae_convert as tavae
 from gen_adversarial_tpu_torch.core import ndvae_convert as tndvae
@@ -107,6 +109,8 @@ def trees():
                                                                AVAE_SIZE // 4, 3)),
                               KEY, seed=7),
         "ndvae": lambda: _tree(JaxNDVAE(**ND), jnp.zeros((1, 32, 32, 3)), KEY, seed=8),
+        "discriminator": lambda: _tree(JaxDiscriminator(SIZE),
+                                       jnp.zeros((4, SIZE, SIZE, 3)), seed=9),
     }
     cache = {}
 
@@ -139,6 +143,9 @@ KINDS = {
     "trans": (lambda t: layout.style_transformer_state_dict(t, SIZE),
               lambda sd: jstyle.convert_style_transformer(sd, SIZE),
               lambda sd: tstyle.convert_style_transformer(sd, SIZE)),
+    "discriminator": (lambda t: layout.discriminator_state_dict(t["params"], SIZE),
+                      lambda sd: jstyle.convert_discriminator(sd, SIZE),
+                      lambda sd: tstyle.convert_discriminator(sd, SIZE)),
     "avae": (layout.avae_state_dict, lambda sd: javae.convert_avae(sd, AVAE_SIZE),
              lambda sd: tavae.convert_avae(sd, AVAE_SIZE)),
     "ndvae": (lambda t: layout.ndvae_state_dict(t, ND["pre_proc_groups"], ND["scales"],

@@ -286,6 +286,7 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "cli/train_ndvae.py", "cli/trades_finetune.py",
     "core/stylegan_convert.py", "core/avae_convert.py", "core/ndvae_convert.py",
     "cli/convert_checkpoints.py",
+    "core/distributed.py", "models/stylegan2/discriminator.py",
 ]
 
 

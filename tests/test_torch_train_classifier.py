@@ -201,9 +201,11 @@ def test_fit_resumed_equals_uninterrupted_and_counts_the_ragged_tail(world, tmp_
 
 
 def test_fit_refuses_several_devices():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    """Several devices in one process name the torchrun command;
+    distributed=True without a process group refuses to train alone."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tclf.fit("vgg", 2, 64, None, None, 1, 0.1, 4, n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    with pytest.raises(RuntimeError, match="no process group"):
         tclf.fit("vgg", 2, 64, None, None, 1, 0.1, 4, distributed=True, device="cpu")
 
 

@@ -328,6 +328,33 @@ def style_transformer_state_dict(tree: dict, output_size: int,
     return sd
 
 
+def _conv_layer(w, prefix, leaf, downsample=False):
+    """A ConvLayer (nn.Sequential [Blur]? -> EqualConv2d -> [activation]?):
+    the EqualConv2d at index 1 after a downsample Blur, whose fixed kernel
+    buffer the converter does not read."""
+    ci = 1 if downsample else 0
+    w.put(f"{prefix}.{ci}.weight", _inv(leaf["conv"]["weight"], _OIHW))
+    if "bias" in leaf["conv"]:
+        w.put(f"{prefix}.{ci}.bias", leaf["conv"]["bias"])
+    if "activate_bias" in leaf:
+        w.put(f"{prefix}.{ci + 1}.bias", leaf["activate_bias"])
+
+
+def discriminator_state_dict(params: dict, size: int) -> dict:
+    """A StyleGAN2 discriminator's params -> its state dict."""
+    w = _Writer()
+    _conv_layer(w, "convs.0", params["conv_in"])
+    for n, i in enumerate(range(int(math.log2(size)), 2, -1), start=1):
+        block = params[f"res_{i}"]
+        _conv_layer(w, f"convs.{n}.conv1", block["conv1"])
+        _conv_layer(w, f"convs.{n}.conv2", block["conv2"], downsample=True)
+        _conv_layer(w, f"convs.{n}.skip", block["skip"], downsample=True)
+    _conv_layer(w, "final_conv", params["final_conv"])
+    w.linear("final_linear.0", params["final_linear0"], name="weight")
+    w.linear("final_linear.1", params["final_linear1"], name="weight")
+    return w.sd
+
+
 # ------------------------------------------------------------ A-VAE
 def _eq_conv(w, prefix, leaf):
     w.put(f"{prefix}.conv.weight_orig", _inv(leaf["weight"], _OIHW))
