@@ -52,14 +52,24 @@ tests/torch_reference_layout.py, the NVAE's convolutions weight-normed),
 converted to flax msgpack by cli/convert_checkpoints.py (each file's tree
 held against core/convert.to_jax_variables of its module), a copy of
 configs/ours_linear_noise_ids.yaml pointing at them, 6 PNG images in two
-class folders; `eval/factory.load_defense` (its logits held against the
+class folders (made by phase `harness_files`, before `attack_remat`: the
+converter's two processes run on the host while the card runs the attack
+and bfloat16 phases); `eval/factory.load_defense` (its logits held against the
 built defense's on the same draws) and `eval/harness.run_benchmark` under
 DeepFool and C&W at short budgets, with plots, checked as results.json (each
 attack moves an image classified right to a finite minimal L2) and PNG
-files. Then `alpha_search` runs cli/alpha_search.py's main() on the same
+files. Phase `configs` (after `distributed`) copies six more configs onto
+the harness's files (ours_cosine_blur_ids, ours_learned_no_preprocessing_ids,
+both ablations, no_defense_ids, competitor_trades_ids), loads each through
+load_defense and holds its EoT-2 forward at batch 2 to the harness's built
+modules under the config's settings on the same draws, with K1's 50
+launches on the two ours_* and none elsewhere, and times one DeepFool step
+on ours_cosine_blur_ids (the input blur and the shared-encode EoT); the
+other configs run in gen_adversarial_tpu_torch/smoke_all_configs.py. Then
+`alpha_search` runs cli/alpha_search.py's main() on the same
 files: make-adv (FGSM at L2 2.0 through EoT-32 over the 6 PNGs; at least
 one adversary kept, each a 64 x 64 PNG under its source's name within the
-bound of it) and bo (the 5 seed schedules and 2 GP steps on the kept set;
+bound of it) and bo (the 5 seed schedules and 1 GP step on the kept set;
 alphas.npy and accuracies.npy checked), then an AlphaEvaluator on the
 harness's loaded flagship draws the same at one position twice and after
 fast_forward, and the GP's fit and acquisition on the card agree with the
@@ -116,7 +126,7 @@ import time
 BUDGET_S = 300.0
 BATCH = 4
 EOT_STEPS = 32
-TIMED_CALLS = 2
+TIMED_CALLS = 1
 GRAD_CALLS = 1  # timed input-gradient calls of the full flagship, after a warm-up
 KERNEL_REPS = 10
 # float32 kernel vs plain: both sum 25 products in float32 in another order
@@ -146,7 +156,7 @@ CARS_EOT_CHUNK = None
 # ~0.5 s at a 512- or 1024-px shape); the library calls that the kernels
 # line reports keep LIBRARY_REPS launches after 3 warm-ups, as they had
 # before the plain versions were cut
-K2_SLOW_REPS = 2
+K2_SLOW_REPS = 1
 LIBRARY_REPS = 5
 # the attacks, GPU vs CPU on a small defense (phase `attacks_parity`): a few
 # steps of each; bounds (relative) and adversarial images (absolute, in
@@ -172,7 +182,7 @@ REMAT_RTOL = 1e-5
 # `kernels_bf16`); the plain version timed at fewer launches, the library
 # call at LIBRARY_REPS
 BF16_KERNEL_RTOL = 2.0 ** -7
-BF16_SLOW_REPS = 2
+BF16_SLOW_REPS = 1
 # phase `harness`: the flagship's results.json over 6 images at batch 4 (one
 # full batch, one ragged batch of 2), DeepFool at ATTACK_DF_ITERS steps with
 # its cotangents in blocks of ATTACK_COT_CHUNK, C&W at HARNESS_CW_STEPS steps
@@ -184,15 +194,24 @@ HARNESS_IMAGES = 6
 HARNESS_CW_STEPS = 4
 HARNESS_MARGIN_SIGMAS = 2.0
 HARNESS_SEED = 42  # run_benchmark's seed: its draws are computed here too
+# phase `configs`: copies of these configs on the harness's files, each
+# loaded by load_defense and held to the same modules built directly at
+# batch CONFIGS_BATCH x EoT-CONFIGS_EOT (ours_cosine_blur_ids: the input
+# blur, then the shared-encode EoT at eps 0); one DeepFool step on the first
+PHASE_CONFIGS = ("ours_cosine_blur_ids", "ours_learned_no_preprocessing_ids",
+                 "ablation_blur_ids", "ablation_noise_ids", "no_defense_ids",
+                 "competitor_trades_ids")
+CONFIGS_BATCH = 2
+CONFIGS_EOT = 2
 # phase `alpha_search`: make-adv over the harness's 6 PNGs and the evaluator
-# at batch 4, bo with 2 GP steps after its 5 seed schedules; the GP on the
+# at batch 4, bo with 1 GP step after its 5 seed schedules; the GP on the
 # card against the CPU at 12 points of the search's 24 alphas, each call on
 # the same inputs: 200 (fit) or 60 (acquisition) float32 Adam steps,
 # cuSOLVER's Cholesky against LAPACK's (on an H100 the fit's hyperparameters
 # came 3.7e-4 apart, and acquisitions on two fits that far apart gave
 # candidates 5.9e-3 apart, so the acquisition takes one fit's on both)
 ALPHA_ADV_BATCH = 4
-ALPHA_BO_STEPS = 2
+ALPHA_BO_STEPS = 1
 ALPHA_GP_POINTS = 12
 ALPHA_GP_TOL = 1e-3
 # phase `train`: the flagship NVAE's make_nvae_train_step at batch 16 with
@@ -385,16 +404,27 @@ CONVERT_CLI = "import sys, chip_smoke; chip_smoke.run_convert_cli(sys.argv[1:])"
 FOLD_RTOL, FOLD_ATOL = 1e-5, 1e-7
 
 
-def reference_files_round_trip(torch, nvae, vgg, nvae_cfg, tmp, root) -> dict:
+def _stop(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def reference_files_round_trip(torch, nvae, vgg, nvae_cfg, tmp, root):
     """The flagship's NVAE and VGG as the paper's released files hold them,
     fabricated from the modules (tests/torch_reference_layout.py): the NVAE's
     reference checkpoint, {'configuration', 'state_dict_temp=0.6'}, its
     convolutions weight-normed as torch's parametrizations store them, and
     the VGG's trainer checkpoint, {'state_dict'}. The converter CLI turns
-    them into tmp/nvae.msgpack and tmp/vgg.msgpack, both files at once; each
-    file's tree is the module's to_jax_variables leaf for leaf, equal but
-    for the folded kernels (within FOLD_RTOL), and the NVAE's meta config is
-    nvae_cfg. Returns the numbers; raises on a difference."""
+    them into tmp/nvae.msgpack and tmp/vgg.msgpack, both files at once, in
+    processes of their own, which this starts. Returns check(): it waits for
+    them and holds each file's tree to the module's to_jax_variables leaf
+    for leaf, equal but for the folded kernels (within FOLD_RTOL), and the
+    NVAE's meta config to nvae_cfg; it returns the numbers and raises on a
+    difference. Processes still running at exit are killed."""
+    import atexit
+
     import numpy as np
     from gen_adversarial_tpu_torch.core.checkpoint import load_variables
     from gen_adversarial_tpu_torch.core.convert import to_jax_variables
@@ -422,42 +452,48 @@ def reference_files_round_trip(torch, nvae, vgg, nvae_cfg, tmp, root) -> dict:
         [sys.executable, "-c", CONVERT_CLI, *a, "--src", str(tmp / f"{name}.pt"),
          "--dst", str(tmp / f"{name}.msgpack")], cwd=root, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for name, a in args.items()}
-    cli = {}
-    for name, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=BUDGET_S)
-        if proc.returncode != 0:
-            raise RuntimeError(f"convert_checkpoints {name}: exit {proc.returncode}: "
-                               f"{stderr[-2000:]}")
-        cli[name] = json.loads(stdout.strip().splitlines()[-1])
-    out["convert_wall_s"] = time.monotonic() - t
-    out["convert_cli"] = cli
+    atexit.register(_stop, list(procs.values()))
 
-    t = time.monotonic()
-    files = {name: load_variables(tmp / f"{name}.msgpack") for name in trees}
-    out["compare_read_s"] = time.monotonic() - t
-    fold_err = 0.0
-    for name, (got, meta) in files.items():
-        want = dict(_leaves(trees[name]))
-        got = dict(_leaves(got))
-        if sorted(got) != sorted(want):
-            raise RuntimeError(f"{name}: the converted tree's leaves differ: "
-                               f"{sorted(set(got) ^ set(want))[:5]}")
-        for path, w in want.items():
-            g = got[path]
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise RuntimeError(f"{name} {path}: {g.dtype}{g.shape} for {w.dtype}{w.shape}")
-            if name == "nvae" and path[-1] == "kernel":
-                fold_err = max(fold_err, float(np.abs(g - w).max() / np.abs(w).max()))
-                if not np.allclose(g, w, rtol=FOLD_RTOL, atol=FOLD_ATOL):
-                    raise RuntimeError(f"nvae {path}: the folded kernel is "
-                                       f"{np.abs(g - w).max()} off")
-            elif not np.array_equal(g, w):
-                raise RuntimeError(f"{name} {path}: the converted leaf differs")
-    if NVAEConfig(**files["nvae"][1]["config"]) != nvae_cfg:
-        raise RuntimeError(f"the NVAE's meta config {files['nvae'][1]['config']}")
-    out["nvae_fold_max_rel_err"] = fold_err
-    out["leaves"] = {name: len(list(_leaves(tree))) for name, tree in trees.items()}
-    return out
+    def check() -> dict:
+        cli = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=BUDGET_S)
+            if proc.returncode != 0:
+                raise RuntimeError(f"convert_checkpoints {name}: exit {proc.returncode}: "
+                                   f"{stderr[-2000:]}")
+            cli[name] = json.loads(stdout.strip().splitlines()[-1])
+        out["convert_wall_s"] = time.monotonic() - t  # from the start, not from check()
+        out["convert_cli"] = cli
+
+        t_read = time.monotonic()
+        files = {name: load_variables(tmp / f"{name}.msgpack") for name in trees}
+        out["compare_read_s"] = time.monotonic() - t_read
+        fold_err = 0.0
+        for name, (got, meta) in files.items():
+            want = dict(_leaves(trees[name]))
+            got = dict(_leaves(got))
+            if sorted(got) != sorted(want):
+                raise RuntimeError(f"{name}: the converted tree's leaves differ: "
+                                   f"{sorted(set(got) ^ set(want))[:5]}")
+            for path, w in want.items():
+                g = got[path]
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise RuntimeError(f"{name} {path}: {g.dtype}{g.shape} for "
+                                       f"{w.dtype}{w.shape}")
+                if name == "nvae" and path[-1] == "kernel":
+                    fold_err = max(fold_err, float(np.abs(g - w).max() / np.abs(w).max()))
+                    if not np.allclose(g, w, rtol=FOLD_RTOL, atol=FOLD_ATOL):
+                        raise RuntimeError(f"nvae {path}: the folded kernel is "
+                                           f"{np.abs(g - w).max()} off")
+                elif not np.array_equal(g, w):
+                    raise RuntimeError(f"{name} {path}: the converted leaf differs")
+        if NVAEConfig(**files["nvae"][1]["config"]) != nvae_cfg:
+            raise RuntimeError(f"the NVAE's meta config {files['nvae'][1]['config']}")
+        out["nvae_fold_max_rel_err"] = fold_err
+        out["leaves"] = {name: len(list(_leaves(tree))) for name, tree in trees.items()}
+        return out
+
+    return check
 
 
 def main() -> int:
@@ -1235,6 +1271,77 @@ def main() -> int:
                                   "k2_launches": k2.launches, "k1_launches": k1.launches}
         return out
 
+    import tempfile
+    from pathlib import Path
+
+    # phases harness_files, harness and alpha_search share one directory: the
+    # flagship's checkpoints (2.75 GB, written once), the config copy and the
+    # 6 PNGs
+    root = Path(__file__).resolve().parent
+    (root / ".scratch").mkdir(exist_ok=True)  # gitignored
+    scratch = tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch")
+    shared = {}  # what a phase leaves to a later one
+
+    def harness_files_phase():
+        # the harness's float32 flagship, its 6 PNGs and its files: the
+        # converter CLI's two processes (host numpy, about 15-18 s) run
+        # while the next phases use the card; the harness phase collects them
+        import numpy as np
+        from gen_adversarial_tpu_torch.core.config import DefenseConfig
+        from gen_adversarial_tpu_torch.data import png
+        from gen_adversarial_tpu_torch.eval.harness import batch_generator
+
+        out = {"nvidia_smi": device_info["nvidia_smi"]}
+        tmp = Path(scratch.name)
+        built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+        # the config's alphas are rounded to two decimals: the built
+        # defense takes them, so the loaded one computes the same logits
+        cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
+        built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
+                                           * np.float32(cfg.alpha_attenuation)))
+        # 6 images in two class folders, 'a' (label 0: images 0-2, all in
+        # the first batch) and 'b' (label 1). Random weights put every
+        # image on one class by ~0.29 and move a logit by ~1e-3 from draw
+        # to draw, so no image would be classified right: the head's
+        # class-0 bias is raised until image 0 wins class 0 under the
+        # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
+        # margin over 8 draws (the harness's 4 stages of batch 0 and 4
+        # more). Images 1-2 then fall either side of the boundary.
+        rng = np.random.RandomState(0)
+        pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
+        for i, image in enumerate(pixels):
+            png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
+                      / f"{i}.png", image)
+        first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
+        net = eot_wrap(built, EOT_STEPS)
+
+        def margin_lost(logits):  # best other class minus class 0
+            return logits[:, 1:].max(1).values - logits[:, 0]
+
+        with torch.no_grad():
+            draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
+            draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
+            lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
+            sigma = lost.std().item()
+            built.classifier.classifier.fc1.bias[0] += \
+                lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
+            clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
+        out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
+        # the 'a' images the harness's clean predictions get right
+        right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
+        if 0 not in right:
+            raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
+        del net, first
+        torch.cuda.synchronize()
+        # the checkpoints: reference-format .pt files of the built modules,
+        # converted by the converter CLI in processes of their own, which run
+        # through the next phases (see reference_files_round_trip)
+        shared.update(built=built, right=right, conversion=reference_files_round_trip(
+            torch, built.purifier, built.classifier, FLAGSHIP_NVAE, tmp, root))
+        return out
+
+    run_phase("harness_files", harness_files_phase)
+
     from gen_adversarial_tpu_torch.defenses.base import REMAT_POLICIES
 
     attack_rm = run_phase("attack_remat", attack_remat_phase)
@@ -1604,16 +1711,6 @@ def main() -> int:
     attack16 = run_phase("attack_bf16", attack_bf16_phase)
     torch.cuda.empty_cache()
 
-    import tempfile
-    from pathlib import Path
-
-    # phases harness and alpha_search share one directory: the flagship's
-    # checkpoints (2.75 GB, written once), the config copy and the 6 PNGs
-    root = Path(__file__).resolve().parent
-    (root / ".scratch").mkdir(exist_ok=True)  # gitignored
-    scratch = tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch")
-    shared = {}  # what the harness phase leaves to the alpha_search phase
-
     # phase `distributed`'s two ranks (each about 8 s to reach the card, then
     # import, rendezvous and two small steps) run while the harness phase
     # works on the host: started there, collected by `distributed`
@@ -1665,63 +1762,20 @@ def main() -> int:
         import re
         from functools import partial
 
-        import numpy as np
         from gen_adversarial_tpu_torch.core.checkpoint import load_variables
-        from gen_adversarial_tpu_torch.core.config import DefenseConfig
         from gen_adversarial_tpu_torch.data import png
         from gen_adversarial_tpu_torch.eval.factory import load_defense
         from gen_adversarial_tpu_torch.eval.harness import (
-            ATTACK_JSON_NAMES, TITLE_STRIP, batch_generator, run_benchmark)
+            ATTACK_JSON_NAMES, TITLE_STRIP, run_benchmark)
 
         out = {"nvidia_smi": device_info["nvidia_smi"], "batch": HARNESS_BATCH,
                "images": HARNESS_IMAGES, "eot_steps": EOT_STEPS}
         tmp = Path(scratch.name)
-        built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
-        # the config's alphas are rounded to two decimals: the built
-        # defense takes them, so the loaded one computes the same logits
-        cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
-        built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
-                                           * np.float32(cfg.alpha_attenuation)))
-        # 6 images in two class folders, 'a' (label 0: images 0-2, all in
-        # the first batch) and 'b' (label 1). Random weights put every
-        # image on one class by ~0.29 and move a logit by ~1e-3 from draw
-        # to draw, so no image would be classified right: the head's
-        # class-0 bias is raised until image 0 wins class 0 under the
-        # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
-        # margin over 8 draws (the harness's 4 stages of batch 0 and 4
-        # more). Images 1-2 then fall either side of the boundary.
-        rng = np.random.RandomState(0)
-        pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
-        for i, image in enumerate(pixels):
-            png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
-                      / f"{i}.png", image)
-        first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
-        net = eot_wrap(built, EOT_STEPS)
-
-        def margin_lost(logits):  # best other class minus class 0
-            return logits[:, 1:].max(1).values - logits[:, 0]
-
-        with torch.no_grad():
-            draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
-            draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
-            lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
-            sigma = lost.std().item()
-            built.classifier.classifier.fc1.bias[0] += \
-                lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
-            clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
-        out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
-        # the 'a' images the harness's clean predictions get right
-        right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
-        if 0 not in right:
-            raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
-        del net, first
-        torch.cuda.synchronize()
-        # the checkpoints: reference-format .pt files of the built modules,
-        # converted by the converter CLI (see reference_files_round_trip)
+        built, right = shared["built"], shared["right"]
+        # the converter processes started by harness_files have run meanwhile
         t = time.monotonic()
-        out["conversion"] = reference_files_round_trip(
-            torch, built.purifier, built.classifier, FLAGSHIP_NVAE, tmp, root)
-        out["conversion_s"] = time.monotonic() - t
+        out["conversion"] = shared.pop("conversion")()
+        out["conversion_wait_s"] = time.monotonic() - t
         out["checkpoint_gb"] = sum((tmp / f).stat().st_size
                                    for f in ("nvae.msgpack", "vgg.msgpack")) / 1e9
         # read: every array of both files to the device
@@ -1761,7 +1815,7 @@ def main() -> int:
             raise RuntimeError(f"the loaded flagship's logits differ from the built one's: "
                                f"{err} > {tol}")
         out["loaded_vs_built"] = {"max_abs_err": err, "tol": tol}
-        del built, want, got
+        del want, got
         torch.cuda.empty_cache()
 
         seconds = {"deepfool": [], "c&w": []}
@@ -1838,7 +1892,109 @@ def main() -> int:
                    progress_left=(results_dir / "progress_p0.json").exists(), log=logs)
         if out["progress_left"]:
             raise RuntimeError("the harness left its progress file")
-        shared.update(config=config, loaded=loaded, images=tmp / "images")
+        shared.update(config=config, loaded=loaded, images=tmp / "images", built=built)
+        return out
+
+    def configs_phase():
+        # six more configs from the harness's files: each copy loaded by
+        # load_defense, its EoT forward held to the harness's built modules
+        # under the config's settings on the same draws, with K1's launches;
+        # each file is read once (the harness phase times a read)
+        import re
+        from functools import lru_cache
+
+        import numpy as np
+        from gen_adversarial_tpu_torch.core.config import DefenseConfig
+        from gen_adversarial_tpu_torch.defenses.ablations import (
+            GaussianBlurDefense, GaussianNoiseDefense)
+        from gen_adversarial_tpu_torch.defenses.base import (
+            ClassifierDefense, MLVGMDefense, make_classifier_apply)
+        from gen_adversarial_tpu_torch.defenses.purify import make_nvae_purify_split
+        from gen_adversarial_tpu_torch.eval import factory
+
+        tmp = Path(scratch.name)
+        built = shared.pop("built")
+        nvae, vgg = built.purifier, built.classifier
+        apply = make_classifier_apply(vgg)
+        out = {"nvidia_smi": device_info["nvidia_smi"], "batch": CONFIGS_BATCH,
+               "eot_steps": CONFIGS_EOT}
+        images = torch.rand(CONFIGS_BATCH, 64, 64, 3, device=dev, generator=gen)
+        read = factory.load_variables
+        factory.load_variables = lru_cache(maxsize=None)(read)
+        try:
+            for name in PHASE_CONFIGS:
+                text = (root / "configs" / f"{name}.yaml").read_text()
+                text = re.sub(r"^classifier_path: .*$",
+                              f"classifier_path: {tmp / 'vgg.msgpack'}", text, flags=re.M)
+                text = re.sub(r"^autoencoder_path: .*$",
+                              f"autoencoder_path: {tmp / 'nvae.msgpack'}", text, flags=re.M)
+                config = tmp / "configs" / f"{name}.yaml"
+                config.parent.mkdir(exist_ok=True)
+                config.write_text(text)
+                cfg = DefenseConfig.from_yaml(config)
+                t = time.monotonic()
+                loaded = factory.load_defense(str(config), eot_steps=CONFIGS_EOT)
+                torch.cuda.synchronize()
+                load_s = time.monotonic() - t
+                if name.startswith("ours"):
+                    alphas = torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
+                                             * np.float32(cfg.alpha_attenuation), device=dev)
+                    encode, decode = make_nvae_purify_split(nvae, 0.6)
+                    direct = MLVGMDefense(
+                        purifier=nvae, classifier=vgg, alphas=alphas, purify_encode=encode,
+                        purify_decode=decode, classifier_apply=apply,
+                        initial_noise_eps=cfg.initial_noise_eps,
+                        apply_blur=cfg.gaussian_blur_input, image_size=64)
+                elif name.startswith("ablation_blur"):
+                    direct = GaussianBlurDefense(vgg, apply, 64)
+                elif name.startswith("ablation_noise"):
+                    direct = GaussianNoiseDefense(vgg, apply, eps=2.0)
+                else:  # no_defense, TRADES: the bare classifier, deterministic
+                    direct = ClassifierDefense(vgg, apply)
+                with torch.no_grad():
+                    want = eot_wrap(direct, CONFIGS_EOT)(
+                        images, torch.Generator(device=dev).manual_seed(17))
+                    reset_counts()  # counts from here on are this config's path
+                    got = loaded.net(images, torch.Generator(device=dev).manual_seed(17))
+                    torch.cuda.synchronize()
+                launches = k1.launches
+                err = (got - want).abs().max().item()
+                tol = PARITY_RTOL * max(1.0, want.abs().max().item())
+                expected = 50 if name.startswith("ours") else 0  # one decode of the batch
+                out[name] = {"load_defense_s": load_s, "defense_type": loaded.defense_type,
+                             "eot_steps": loaded.eot_steps, "k1_launches": launches,
+                             "k2_launches": k2.launches, "max_abs_err": err, "tol": tol}
+                if not math.isfinite(err) or err > tol:
+                    raise RuntimeError(f"{name}: the loaded defense's logits differ from the "
+                                       f"directly built one's: {err} > {tol}")
+                if launches != expected or k2.launches:
+                    raise RuntimeError(f"{name}: K1 {launches} and K2 {k2.launches} launches "
+                                       f"in one forward, expected {expected} and 0")
+                if name == PHASE_CONFIGS[0]:
+                    # one DeepFool step (the suite's 8 classes at once) on
+                    # labels the attack's first draws predict, so it steps
+                    with torch.no_grad():
+                        labels = loaded.net(
+                            images, torch.Generator(device=dev).manual_seed(5)).argmax(1)
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                    t = time.monotonic()
+                    succ, bound, adv, steps = loaded.attacks["deepfool"](
+                        loaded.net, images, labels, torch.Generator(device=dev).manual_seed(5),
+                        max_iter=1, return_iters=True)
+                    torch.cuda.synchronize()
+                    out["deepfool_step"] = {
+                        "config": name, "s": time.monotonic() - t, "steps": steps,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "k1_launches": k1.launches, "success": succ.tolist(),
+                        "bound": [b if math.isfinite(b) else None for b in bound.tolist()]}
+                    if steps != 1 or not torch.isfinite(adv).all() or not k1.launches:
+                        raise RuntimeError(f"DeepFool step: {out['deepfool_step']}")
+                del loaded, direct, want, got
+        finally:
+            factory.load_variables = read
+        del built, nvae, vgg
+        torch.cuda.empty_cache()
         return out
 
     def alpha_search_phase():
@@ -2767,6 +2923,7 @@ def main() -> int:
         harness = run_phase("harness", harness_phase)
         run_phase("distributed", distributed_phase)
         torch.cuda.empty_cache()
+        configs = run_phase("configs", configs_phase)
         alpha = run_phase("alpha_search", alpha_search_phase)
         train = run_phase("train", train_phase)
         torch.cuda.empty_cache()
@@ -2848,6 +3005,8 @@ def main() -> int:
               attack_launches={"attacks_parity": attack_parity["k1_launches"],
                                "attack_flagship": attack_flag["k1_launches"],
                                "harness": harness["k1_launches"],
+                               "configs": sum(configs[c]["k1_launches"] for c in PHASE_CONFIGS)
+                               + configs["deepfool_step"]["k1_launches"],
                                "alpha_search": alpha["k1_launches"],
                                "train": train["k1_launches"]}),
         # the top-level numbers are the gender path's; `launches` and
