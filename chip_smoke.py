@@ -30,7 +30,10 @@ CPU (FAB over 100 classes), and the staged AutoAttack against the
 monolithic one on the GPU; `attack_flagship` runs DeepFool and APGD-CE a
 few steps on the full ids flagship (EoT-32), through K1; `attack_remat`
 runs APGD-CE on the full gender defense and one input gradient of the full
-cars defense, both with remat, through K2. Then bfloat16
+cars defense, both with remat, through K2. The CPU's references of
+`grad`, `attacks_parity` and `bf16_parity` run on a worker thread while the
+card runs the phases after them; `cpu_refs`, after `attack_remat`, waits
+for them and makes the grad and attack checks. Then bfloat16
 (core/precision.defense_astype): `kernels_bf16` checks the kernels'
 bfloat16 builds against their bfloat16 plain versions
 at the flagship's, the gender path's and the cars path's shapes (K2
@@ -52,11 +55,12 @@ tests/torch_reference_layout.py, the NVAE's convolutions weight-normed),
 converted to flax msgpack by cli/convert_checkpoints.py (each file's tree
 held against core/convert.to_jax_variables of its module), a copy of
 configs/ours_linear_noise_ids.yaml pointing at them, 6 PNG images in two
-class folders (made by phase `harness_files`, before `attack_remat`: the
-converter's two processes run on the host while the card runs the attack
-and bfloat16 phases); `eval/factory.load_defense` (its logits held against the
-built defense's on the same draws) and `eval/harness.run_benchmark` under
-DeepFool and C&W at short budgets, with plots, checked as results.json (each
+class folders (made by phase `harness_files`, right after `parity`: the
+converter's two processes run on the host while the card runs the kernel,
+gender, cars, gradient, attack and bfloat16 phases);
+`eval/factory.load_defense` (its logits held against the built defense's
+on the same draws) and `eval/harness.run_benchmark` under DeepFool and C&W
+at short budgets, with plots, checked as results.json (each
 attack moves an image classified right to a finite minimal L2) and PNG
 files. Phase `configs` (after `distributed`) copies six more configs onto
 the harness's files (ours_cosine_blur_ids, ours_learned_no_preprocessing_ids,
@@ -103,7 +107,8 @@ at the 1024-px StyleGAN2 discriminator's 16 blur sites (pads (2, 2) and
 (1, 1), before its stride-2 convolutions), its forward and input gradient
 at batch 4 with K2's 16 and 32 launches, one converted from a
 reference-layout state dict giving the same logits, and a small one on the
-card against the CPU. Every phase prints one JSON line with its elapsed seconds;
+card against the CPU. Every phase prints one JSON line with its seconds
+and the run's seconds so far;
 the second-to-last line summarises the kernels (K1 and K2, each in float32
 and in bfloat16), and the last line is
 {"ok": true, "device": {...}}. Any failure, or passing the 5-minute budget
@@ -152,27 +157,37 @@ BLUR_PAD = (1, 1)  # the blur after a 3x3 up-convolution
 # the cars defense: batch 4 images x EoT-32, all 32 draws in one batch
 CARS_BATCH = 4
 CARS_EOT_CHUNK = None
-# K2's plain version is timed at fewer launches, after one warm-up (each is
-# ~0.5 s at a 512- or 1024-px shape); the library calls that the kernels
-# line reports keep LIBRARY_REPS launches after 3 warm-ups, as they had
-# before the plain versions were cut
+# K2's plain version is timed at fewer launches, warmed by the call that
+# the check made (each is ~0.5 s at a 512- or 1024-px shape); the library
+# calls that the kernels line reports at LIBRARY_REPS launches after
+# LIBRARY_WARMUP (each is ~0.25 s at the 1025-px site)
 K2_SLOW_REPS = 1
-LIBRARY_REPS = 5
+LIBRARY_REPS = 2
+LIBRARY_WARMUP = 1
 # the attacks, GPU vs CPU on a small defense (phase `attacks_parity`): a few
 # steps of each; bounds (relative) and adversarial images (absolute, in
 # [0, 1]) after steps that each take a float32 input gradient
 ATTACK_TOL = 1e-3
 # the attacks on the full flagship (phase `attack_flagship`): batch 4,
-# DeepFool's 8 class cotangents in blocks of 4 (the backward's live memory)
+# DeepFool's 8 class cotangents in blocks of 4 (the backward's live memory),
+# FLAGSHIP_DF_ITERS steps of it and ATTACK_APGD_ITERS of APGD-CE (also in
+# bfloat16, phase `attack_bf16`)
 ATTACK_BATCH = 4
-ATTACK_DF_ITERS = 2
-ATTACK_APGD_ITERS = 4
+ATTACK_DF_ITERS = 2  # also the harness's and phase distributed's DeepFool
+FLAGSHIP_DF_ITERS = 1
+ATTACK_APGD_ITERS = 2
 ATTACK_COT_CHUNK = 4
 # APGD-CE on the full gender defense and one input gradient of the full
 # cars defense, remat on (phase `attack_remat`); the EoT draws in chunks of
 # 4, so that a backward recomputes one chunk's purify at a time
 REMAT_APGD_ITERS = 1
 REMAT_EOT_CHUNK = 4
+# their batches: the gender attack and CE gradients (also in bfloat16, phase
+# `attack_bf16`) on one image, the cars gradient on two; the gender CE
+# gradient under each remat_policy at EoT-REMAT_POLICY_EOT (two chunks)
+REMAT_GENDER_BATCH = 1
+REMAT_CARS_BATCH = 2
+REMAT_POLICY_EOT = 8
 # the small gender defense's class gradients with remat on against off, on
 # cuDNN's deterministic algorithms: the recompute replays the same draws
 REMAT_RTOL = 1e-5
@@ -220,7 +235,7 @@ ALPHA_GP_TOL = 1e-3
 # of a small VGG on the card against the CPU, from the same weights and
 # draws (loss, gradients, parameters, running statistics; relative)
 TRAIN_SEED = 7
-TRAIN_STEPS = 2
+TRAIN_STEPS = 1
 TRAIN_NVAE_BATCH = 16
 TRAIN_CLF_BATCH = 64
 TRAIN_INPUT_NOISE = 0.03
@@ -238,6 +253,8 @@ COMPETITOR_BATCH = {"ids": 4, "gender": 2, "cars": 4}
 # of 4 cotangents ran out of the card's 80 GB (no remat: eot_chunk would not
 # bound a backward's memory)
 COMPETITOR_DF_COT_CHUNK = {"avae": ATTACK_COT_CHUNK, "ndvae": 1}
+# the DeepFool step and the CE gradient take the first images of the ids batch
+COMPETITOR_ATTACK_BATCH = 2
 TRAIN_AVAE_BATCH = 32
 # the gender CE gradient under a remat_policy against policy None (phase
 # attack_remat): the same function, but cuDNN may run other algorithms,
@@ -280,9 +297,10 @@ def fail(msg: str) -> int:
 def run_phase(name, fn):
     t = time.monotonic()
     out = fn()
-    out = {"phase": name, "seconds": round(time.monotonic() - t, 3), **out}
-    emit(out)
     elapsed = time.monotonic() - T0
+    out = {"phase": name, "seconds": round(time.monotonic() - t, 3),
+           "elapsed_s": round(elapsed, 3), **out}
+    emit(out)
     if elapsed > BUDGET_S:
         raise RuntimeError(f"budget of {BUDGET_S:.0f} s passed after phase {name} "
                            f"({elapsed:.1f} s)")
@@ -411,6 +429,16 @@ def _stop(procs) -> None:
             proc.wait()
 
 
+def _stop_group(proc) -> None:
+    """Kill proc's process group (started with start_new_session) if proc
+    still runs."""
+    import os
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
 def reference_files_round_trip(torch, nvae, vgg, nvae_cfg, tmp, root):
     """The flagship's NVAE and VGG as the paper's released files hold them,
     fabricated from the modules (tests/torch_reference_layout.py): the NVAE's
@@ -503,18 +531,27 @@ def main() -> int:
     # a hang (a kernel that never returns) still ends the process
     faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gen_adversarial_tpu_torch.core import cuda_build
+    from gen_adversarial_tpu_torch.ops import depthwise as k1
+    from gen_adversarial_tpu_torch.ops import upfirdn as k2
+
+    # one nvcc per source, all started together, while the rest imports;
+    # phase `build` collects them
+    builder = ThreadPoolExecutor(1)
+    building = builder.submit(cuda_build.load, k1.SOURCE, k2.SOURCE)
+    builder.shutdown(wait=False)
+
     import torch.nn.functional as F
     from torch.func import vjp, vmap
     from gen_adversarial_tpu_torch import cars
-    from gen_adversarial_tpu_torch.core import cuda_build
     from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
     from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, flagship
     from gen_adversarial_tpu_torch.gender import IMAGE_SIZE, gender_defense
     from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig, eps_shapes
     from gen_adversarial_tpu_torch.models.stylegan2.generator import GENERATOR_CHANNELS
     from gen_adversarial_tpu_torch.models.stylegan2.layers import BLUR_KERNEL
-    from gen_adversarial_tpu_torch.ops import depthwise as k1
-    from gen_adversarial_tpu_torch.ops import upfirdn as k2
 
     # float32 means float32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -528,15 +565,18 @@ def main() -> int:
             capture_output=True, text=True, timeout=30)
         line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not available"
         print(line, flush=True)
+        import os
         return {"kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": line,
-                "torch": torch.__version__, "cuda": torch.version.cuda}
+                "torch": torch.__version__, "cuda": torch.version.cuda,
+                "host": {"cpus": os.cpu_count(), "usable_cpus": len(os.sched_getaffinity(0))}}
 
     device_info = run_phase("device", device_phase)
 
     def build_phase():
-        # one nvcc per source, all started together
-        built = cuda_build.load(k1.SOURCE, k2.SOURCE)
-        return {"sources": [{"source": f"gen_adversarial_tpu_torch/csrc/{name}.cu",
+        t = time.monotonic()
+        built = building.result()
+        return {"wait_s": round(time.monotonic() - t, 3),
+                "sources": [{"source": f"gen_adversarial_tpu_torch/csrc/{name}.cu",
                              "nvcc_s": round(b.seconds, 3), **cuda_build.ptxas_summary(b.log)}
                             for name, b in built.items()]}
 
@@ -629,20 +669,30 @@ def main() -> int:
     flag = run_phase("flagship", flagship_phase)
     torch.cuda.empty_cache()  # the flagship's weights went with its phase
 
-    def small_ids(n_classes=10, num_nf_cells=None):
-        """A small ids defense on the CPU and a deep copy of it on the GPU,
-        with EoT-4 draws and images from a numpy seed; `num_nf_cells` 1 puts
-        a normalizing-flow block after each latent's mix."""
+    # the small defenses' CPU modules, each made once from its seed; every
+    # use takes a deep copy (the same weights, for a fraction of a build)
+    small_built = {}
+
+    def small_cpu(make, *key):
+        if key not in small_built:
+            small_built[key] = make()
+        return copy.deepcopy(small_built[key])
+
+    def small_ids(n_classes=10, num_nf_cells=None, eot=4, on_card=True):
+        """A small ids defense on the CPU and a deep copy of it on the GPU
+        (None unless on_card), with EoT draws and images from a numpy seed;
+        `num_nf_cells` 1 puts a normalizing-flow block after each latent's
+        mix."""
         import numpy as np
         cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2,
                          num_groups_per_scale=2, is_adaptive=False,
                          num_cells_per_group=1, num_latent_per_group=4, num_mixtures=3,
                          num_nf_cells=num_nf_cells)
         plan = (16, "M", 32, "M")
-        eot, b = 4, 2
+        b = 2
         kw = dict(initial_noise_eps=2.0, seed=3, cfg=cfg, vgg_plan=plan, n_classes=n_classes)
-        cpu = flagship(device="cpu", **kw)
-        gpu = copy.deepcopy(cpu).to(dev)
+        cpu = small_cpu(lambda: flagship(device="cpu", **kw), "ids", n_classes, num_nf_cells)
+        gpu = copy.deepcopy(cpu).to(dev) if on_card else None
         rng = np.random.RandomState(4)
         x = torch.tensor(rng.rand(b, 32, 32, 3).astype(np.float32))
         shapes = [(eot * b, 32, 32, 3)] + eps_shapes(cfg, eot * b)
@@ -673,6 +723,130 @@ def main() -> int:
     run_phase("parity", parity_phase)
     torch.cuda.empty_cache()
 
+    import tempfile
+    from pathlib import Path
+
+    # phases harness_files, harness and alpha_search share one directory: the
+    # flagship's checkpoints (2.75 GB, written once), the config copy and the
+    # 6 PNGs
+    root = Path(__file__).resolve().parent
+    (root / ".scratch").mkdir(exist_ok=True)  # gitignored
+    scratch = tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch")
+    shared = {}  # what a phase leaves to a later one
+
+    def harness_files_phase():
+        # the harness's float32 flagship, its 6 PNGs and its files: the
+        # converter CLI's two processes (host numpy, about 15-18 s) run
+        # while the next phases use the card; the harness phase collects them
+        import numpy as np
+        from gen_adversarial_tpu_torch.core.config import DefenseConfig
+        from gen_adversarial_tpu_torch.data import png
+        from gen_adversarial_tpu_torch.eval.harness import batch_generator
+
+        out = {"nvidia_smi": device_info["nvidia_smi"]}
+        tmp = Path(scratch.name)
+        built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
+        # the config's alphas are rounded to two decimals: the built
+        # defense takes them, so the loaded one computes the same logits
+        cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
+        built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
+                                           * np.float32(cfg.alpha_attenuation)))
+        # 6 images in two class folders, 'a' (label 0: images 0-2, all in
+        # the first batch) and 'b' (label 1). Random weights put every
+        # image on one class by ~0.29 and move a logit by ~1e-3 from draw
+        # to draw, so no image would be classified right: the head's
+        # class-0 bias is raised until image 0 wins class 0 under the
+        # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
+        # margin over 8 draws (the harness's 4 stages of batch 0 and 4
+        # more). Images 1-2 then fall either side of the boundary.
+        rng = np.random.RandomState(0)
+        pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
+        for i, image in enumerate(pixels):
+            png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
+                      / f"{i}.png", image)
+        first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
+        net = eot_wrap(built, EOT_STEPS)
+
+        def margin_lost(logits):  # best other class minus class 0
+            return logits[:, 1:].max(1).values - logits[:, 0]
+
+        with torch.no_grad():
+            draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
+            draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
+            lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
+            sigma = lost.std().item()
+            built.classifier.classifier.fc1.bias[0] += \
+                lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
+            clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
+        out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
+        # the 'a' images the harness's clean predictions get right
+        right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
+        if 0 not in right:
+            raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
+        del net, first
+        torch.cuda.synchronize()
+        # the checkpoints: reference-format .pt files of the built modules,
+        # converted by the converter CLI in processes of their own, which run
+        # through the next phases (see reference_files_round_trip)
+        shared.update(built=built, right=right, conversion=reference_files_round_trip(
+            torch, built.purifier, built.classifier, FLAGSHIP_NVAE, tmp, root))
+        return out
+
+    run_phase("harness_files", harness_files_phase)
+
+    # phase `distributed`'s two ranks (each about 8 s to reach the card, then
+    # import, rendezvous and two small steps; 34-43 s of wall on a slow host)
+    # run while the card works through the phases up to `distributed`, which
+    # collects them: started right after harness_files, they use the card only
+    # in their last seconds, during the gradient and attack phases, after the
+    # float32 kernel timings
+    ddp_ranks = {}
+
+    def start_ddp_ranks():
+        import atexit
+        import os
+
+        import numpy as np
+        from gen_adversarial_tpu_torch.core.distributed import TORCHRUN_ENV
+        from gen_adversarial_tpu_torch.data import png
+
+        tmp = Path(scratch.name) / "ddp"
+        rng = np.random.RandomState(TRAIN_SEED)
+        for split, counts in (("train", DDP_TRAIN), ("validation", DDP_VALIDATION)):
+            for cls, count in counts.items():
+                for i in range(count):
+                    png.write(tmp / "data" / split / cls / f"{i}.png",
+                              (rng.rand(DDP_IMAGE, DDP_IMAGE, 3) * 255).astype(np.uint8))
+        env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_ENV}
+        ddp_ranks.update(dir=tmp, t0=time.time(), process=subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+             "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+             "--master-port", str(_free_port()), str(root / "chip_smoke.py"), "ddp-worker",
+             str(tmp / "data"), str(tmp / "two")],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True))
+        # a phase that fails before `distributed` collects them leaves none running
+        atexit.register(_stop_group, ddp_ranks["process"])
+
+    def stop_ddp_ranks() -> str:
+        """The ranks' output once they have ended (their process group
+        killed if they outlast DDP_TIMEOUT_S); '' if none was started."""
+        import os
+        import signal
+
+        ranks = ddp_ranks.pop("process", None)
+        if ranks is None:
+            return ""
+        try:
+            stdout, _ = ranks.communicate(timeout=DDP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(ranks.pid, signal.SIGKILL)
+            stdout, _ = ranks.communicate()
+        ddp_ranks["returncode"] = ranks.returncode
+        return stdout
+
+    start_ddp_ranks()
+
     # the blur after every up-convolution of the 1024-px generator: output
     # r x r at r = 8 .. 1024, input (r + 1) x (r + 1), one launch per decode
     # each, on the folded EoT batch of the gender call
@@ -682,11 +856,12 @@ def main() -> int:
     # normalized, times the factor 2 of an up-convolution
     taps = tuple(2.0 * t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
 
-    def k2_rows(sites, n, pad=BLUR_PAD, taps=taps):
+    def k2_rows(sites, n, pad=BLUR_PAD, taps=taps, library_reps=(LIBRARY_REPS, LIBRARY_WARMUP)):
         """K2 against its plain version at each (C, H_in) of `sites` on a
         batch of n at `pad` (symmetric), timed with the plain version, the
         library call, a copy of the same bytes and the bound; the plain
-        version at K2_SLOW_REPS launches, the library call at LIBRARY_REPS."""
+        version at K2_SLOW_REPS launches, the library call at `library_reps`
+        (launches, warm-ups)."""
         kf = torch.tensor(taps[::-1], device=dev)
         rows = []
         for c, h in sites:
@@ -704,11 +879,11 @@ def main() -> int:
             w2d = torch.outer(kf, kf).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, pad))
             plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, pad), K2_SLOW_REPS,
-                               warmup=1)
+                               warmup=0)
             # at a symmetric pad one depthwise convolution with the 2-D taps
             # is the same function
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=pad[0], groups=c),
-                                 LIBRARY_REPS)
+                                 *library_reps)
             copy = torch.empty_like(x)
             copy_ms = cuda_ms(torch, lambda: copy.copy_(x))
             del copy
@@ -724,6 +899,35 @@ def main() -> int:
             del x, y
             torch.cuda.empty_cache()
         return rows
+
+    def ragged_f32():
+        """K2's float32 build off the main paths' shapes, where it takes its
+        masked path: widths that are not multiples of 4, and an x whose
+        storage starts 4 bytes past 16-byte alignment; negative pads and 3
+        taps. Each call one launch, within K2_TOL of the plain version."""
+        asym, three = (0.1, 0.2, 0.3, 0.4), (1 / 7, 2 / 7, 4 / 7)
+        cases = []
+        for shape, kt, pad, offset in [((2, 3, 9, 9), asym, (1, 1), 0),
+                                       ((1, 35, 20, 37), three, (-1, 2), 0),
+                                       ((2, 45, 33, 31), asym, (2, 2), 0),
+                                       ((3, 45, 17, 17), three, (0, -1), 0),
+                                       ((2, 32, 33, 33), taps, BLUR_PAD, 1),
+                                       ((1, 512, 16, 16), asym, (2, 2), 1)]:
+            n_, c, h, w = shape
+            flat = torch.randn(offset + n_ * h * w * c, device=dev, generator=gen)
+            x = flat[offset:].view(n_, h, w, c).permute(0, 3, 1, 2)
+            before = k2.launches
+            got = k2.upfirdn_blur(x, kt, pad)
+            launched = k2.launches - before
+            plain = k2.blur_plain(x, kt, pad)
+            err = (got - plain).abs().max().item()
+            tol = K2_TOL * max(1.0, plain.abs().max().item())
+            if launched != 1 or not math.isfinite(err) or err > tol:
+                raise RuntimeError(f"K2 (float32) at {shape}, pad {pad}, storage offset "
+                                   f"{offset}: {launched} launches, max abs err {err} > {tol}")
+            cases.append({"shape": list(shape), "taps": len(kt), "pad": list(pad),
+                          "offset_bytes": 4 * offset, "max_abs_err": err, "tol": tol})
+        return cases
 
     def kernels_k2_phase():
         rows = k2_rows(k2_sites, n_gender)
@@ -750,7 +954,8 @@ def main() -> int:
         return {"kernel": "upfirdn_blur", "taps": list(taps), "pad": list(BLUR_PAD),
                 "slow_reps": K2_SLOW_REPS, "library_reps": LIBRARY_REPS, "shapes": rows,
                 "backward": {"C": c, "H_in": h, "max_abs_err": bwd_err, "tol": bwd_tol,
-                             "launches": backward_launches}}
+                             "launches": backward_launches},
+                "ragged": ragged_f32()}
 
     kernels2 = run_phase("kernels_k2", kernels_k2_phase)
 
@@ -795,7 +1000,7 @@ def main() -> int:
     gender = run_phase("gender", gender_phase)
     torch.cuda.empty_cache()  # the gender weights went with its phase
 
-    def small_gender(b=2, eot=4):
+    def small_gender(b=2, eot=2, on_card=True):
         """A small gender defense (32-px generator, full-width encoder, one
         ResNet block per stage) on the CPU and a deep copy of it on the GPU,
         with EoT draws and b 64-px images from a numpy seed."""
@@ -804,8 +1009,8 @@ def main() -> int:
         # remat off: phase `grad` differentiates it with torch.func, which
         # refuses torch.utils.checkpoint
         kw = dict(seed=3, stylegan_size=size, classifier_layers=(1, 1, 1, 1), remat=False)
-        cpu = gender_defense(device="cpu", **kw)
-        gpu = copy.deepcopy(cpu).to(dev)
+        cpu = small_cpu(lambda: gender_defense(device="cpu", **kw), "gender")
+        gpu = copy.deepcopy(cpu).to(dev) if on_card else None
         rng = np.random.RandomState(4)
         x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
         draws = [torch.tensor(rng.standard_normal(s).astype(np.float32))
@@ -889,7 +1094,7 @@ def main() -> int:
     cars_run = run_phase("cars", cars_phase)
     torch.cuda.empty_cache()  # the cars weights went with its phase
 
-    def small_cars(eps, b, eot):
+    def small_cars(eps, b, eot, on_card=True):
         """A small cars defense (32-px generator, full-width encoder, which
         always sees the 192 x 256 crop, one ResNeXt block per stage) on the
         CPU and a deep copy of it on the GPU, with EoT draws and 128-px images
@@ -898,8 +1103,8 @@ def main() -> int:
         size, n_codes, image = 32, 8, cars.IMAGE_SIZE
         kw = dict(initial_noise_eps=eps, seed=3, output_size=size,
                   classifier_layers=(1, 1, 1, 1), remat=False)  # as small_gender's
-        cpu = cars.cars_defense(device="cpu", **kw)
-        gpu = copy.deepcopy(cpu).to(dev)
+        cpu = small_cpu(lambda: cars.cars_defense(device="cpu", **kw), "cars", eps)
+        gpu = copy.deepcopy(cpu).to(dev) if on_card else None
         rng = np.random.RandomState(4)
         x = torch.tensor(rng.rand(b, image, image, 3).astype(np.float32))
         shapes = ([(eot * b, image, image, 3)] if eps > 0 else []) + [(n_codes, eot * b, 512)]
@@ -909,7 +1114,7 @@ def main() -> int:
     def cars_parity_phase():
         # the small cars defense on the GPU (kernel path) against the same
         # weights and draws on the CPU (plain path)
-        cpu, gpu, x, draws, eot, size = small_cars(cars.INITIAL_NOISE_EPS, 2, 4)
+        cpu, gpu, x, draws, eot, size = small_cars(cars.INITIAL_NOISE_EPS, 2, 2)
         before = k2.launches
         with torch.no_grad():
             want = eot_wrap(cpu, eot)(x, draws)
@@ -943,6 +1148,21 @@ def main() -> int:
         return ((got.double() - want.double()).abs().max()
                 / want.double().abs().max()).item()
 
+    # The CPU's references of phases grad, attacks_parity and bf16_parity
+    # need nothing from the card: they run on one worker thread, in the
+    # order submitted, while the card works through the phases after the one
+    # that submits them (the attacks on the full defenses). Phase `cpu_refs`
+    # (after attack_remat) waits for all of them, so that the bfloat16
+    # timings run on an idle host, and makes the grad and attack checks;
+    # bf16_parity makes its own.
+    cpu_worker = ThreadPoolExecutor(1, thread_name_prefix="cpu_refs")
+    submitted, deferred = [], {}
+
+    def on_cpu(fn, *args):
+        future = cpu_worker.submit(fn, *args)
+        submitted.append(future)
+        return future
+
     def grad_phase():
         out = {}
         reset_counts()  # counts from here on are this path's
@@ -964,29 +1184,39 @@ def main() -> int:
         # it that distance (the cars gradient's read 0.16 and 1.0 x the CPU's
         # in two runs of one tree), so the GPU runs cuDNN's deterministic
         # algorithms here and the check reads the same number every run
-        def against_float64(name, cpu, gpu, x, draws, eot):
-            before = k2.launches
+        def cpu_grads(cpu, x, draws, eot):  # on the worker, which owns cpu
             t = time.monotonic()
             want = class_grads(eot_wrap(cpu, eot), x, draws)
-            cpu_s = time.monotonic() - t
+            cpu_s = {"float32": time.monotonic() - t}
+            t = time.monotonic()
+            want64 = class_grads(eot_wrap(cpu.double(), eot), x.double(),
+                                 [d.double() for d in draws])
+            cpu_s["float64"] = time.monotonic() - t
+            return want, want64, cpu_s
+
+        def against_float64(name, cpu, gpu, x, draws, eot):
+            pending = on_cpu(cpu_grads, cpu, x, draws, eot)
+            before = k2.launches
             with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                             deterministic=True, allow_tf32=False):
                 got = class_grads(eot_wrap(gpu, eot), x.to(dev), draws).cpu()
             launched = k2.launches - before
-            t = time.monotonic()
-            want64 = class_grads(eot_wrap(cpu.double(), eot), x.double(),
-                                 [d.double() for d in draws])
-            cpu_s = {"float32": cpu_s, "float64": time.monotonic() - t}
-            gap = rel_err(want, want64)
-            tol = max(PARITY_RTOL, GRAD_GAP_FACTOR * gap)
-            err = rel_err(got, want64)
-            if not math.isfinite(err) or err > tol:
-                raise RuntimeError(f"{name} input gradients, GPU float32 vs CPU float64: {err} "
-                                   f"> {GRAD_GAP_FACTOR} x the CPU float32 one's {gap}")
-            out[name] = {"classes": want.shape[0], "eot_steps": eot, "batch": x.shape[0],
-                         "gpu_f32_vs_cpu_f64": err, "cpu_f32_vs_cpu_f64": gap, "tol": tol,
-                         "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": launched,
-                         "cpu_s": cpu_s}
+
+            def check():
+                want, want64, cpu_s = pending.result()
+                gap = rel_err(want, want64)
+                tol = max(PARITY_RTOL, GRAD_GAP_FACTOR * gap)
+                err = rel_err(got, want64)
+                if not math.isfinite(err) or err > tol:
+                    raise RuntimeError(f"{name} input gradients, GPU float32 vs CPU float64: "
+                                       f"{err} > {GRAD_GAP_FACTOR} x the CPU float32 one's {gap}")
+                return {"classes": want.shape[0], "eot_steps": eot, "batch": x.shape[0],
+                        "gpu_f32_vs_cpu_f64": err, "cpu_f32_vs_cpu_f64": gap, "tol": tol,
+                        "gpu_vs_cpu_f32": rel_err(got, want), "k2_launches": launched,
+                        "cpu_s": cpu_s}
+
+            deferred[f"grad_{name}"] = check
+            out[name] = {"k2_launches": launched, "checked_in": "cpu_refs"}
 
         # one image at EoT-2: the CPU's float32 and float64 references are
         # most of the phase, and the host's share of it varies most
@@ -1080,26 +1310,39 @@ def main() -> int:
                                                                 4.0, True),
             "apgd_dlr": lambda net, v, y, g: attacks.apgd_attack(net, v, y, [start], 4, 0.75,
                                                                  4.0, False),
-            "fab": lambda net, v, y, g: attacks.fab_attack(net, v, y, g, n_iter=2),
+            "fab": lambda net, v, y, g: attacks.fab_attack(net, v, y, g, n_iter=1),
         }
+        def cpu_runs():  # on the worker
+            done = {}
+            for name, run in runs.items():
+                t = time.monotonic()
+                done[name] = (run(nets["cpu"], x, labels, torch.Generator()),
+                              time.monotonic() - t)
+            return done
+
+        pending = on_cpu(cpu_runs)
         reset_counts()  # counts from here on are this phase's
-        out = {"classes": 100, "eot_steps": eot, "batch": x.shape[0], "tol": ATTACK_TOL}
+        out = {"classes": 100, "eot_steps": eot, "batch": x.shape[0], "checked_in": "cpu_refs"}
+        got = {}
         for name, run in runs.items():
-            t = time.monotonic()
-            want = run(nets["cpu"], x, labels, torch.Generator())
-            cpu_s = time.monotonic() - t
             before = k1.launches
             t = time.monotonic()
-            got = run(nets["gpu"], x.to(dev), labels.to(dev), torch.Generator(device=dev))
+            got[name] = run(nets["gpu"], x.to(dev), labels.to(dev), torch.Generator(device=dev))
             torch.cuda.synchronize()
-            gpu_s = time.monotonic() - t
-            bound_err, adv_err = attack_errors(got, want)
-            if bound_err > ATTACK_TOL or adv_err > ATTACK_TOL:
-                raise RuntimeError(f"{name}, GPU vs CPU: bounds {bound_err}, adversarial images "
-                                   f"{adv_err} > {ATTACK_TOL}")
-            out[name] = {"success": want[0].tolist(), "bound_rel_err": bound_err,
-                         "adv_abs_err": adv_err, "k1_launches": k1.launches - before,
-                         "gpu_s": gpu_s, "cpu_s": cpu_s}
+            out[name] = {"k1_launches": k1.launches - before, "gpu_s": time.monotonic() - t}
+
+        def check():
+            res = {"tol": ATTACK_TOL}
+            for name, (want, cpu_s) in pending.result().items():
+                bound_err, adv_err = attack_errors(got[name], want)
+                if bound_err > ATTACK_TOL or adv_err > ATTACK_TOL:
+                    raise RuntimeError(f"{name}, GPU vs CPU: bounds {bound_err}, adversarial "
+                                       f"images {adv_err} > {ATTACK_TOL}")
+                res[name] = {"success": want[0].tolist(), "bound_rel_err": bound_err,
+                             "adv_abs_err": adv_err, "cpu_s": cpu_s}
+            return res
+
+        deferred["attacks_parity"] = check
         if k1.launches == 0:
             raise RuntimeError("the GPU attacks did not go through K1")
         out["k1_launches"] = k1.launches
@@ -1124,6 +1367,28 @@ def main() -> int:
         return out
 
     attack_parity = run_phase("attacks_parity", attacks_parity_phase)
+
+    def bf16_refs():
+        """Phase bf16_parity's CPU side, on the worker: each small defense in
+        float32 and a bfloat16 cast copy of it, their outputs, and the small
+        ids defense's class gradients in both."""
+        from gen_adversarial_tpu_torch.core.precision import defense_astype
+        made = {}
+        for name, make in (
+                ("ids", lambda: small_ids(eot=2, on_card=False)),
+                ("gender", lambda: small_gender(on_card=False)),
+                ("cars", lambda: small_cars(cars.INITIAL_NOISE_EPS, 2, 2, on_card=False))):
+            cpu, _, x, draws, eot, _ = make()
+            cpu16 = defense_astype(copy.deepcopy(cpu))
+            with torch.no_grad():
+                made[name] = (cpu, cpu16, x, draws, eot, eot_wrap(cpu, eot)(x, draws),
+                              eot_wrap(cpu16, eot)(x, draws))
+        cpu, cpu16, x, draws, eot = made["ids"][:5]
+        made["ids_class_grads"] = (class_grads(eot_wrap(cpu, eot), x, draws),
+                                   class_grads(eot_wrap(cpu16, eot), x, draws))
+        return made
+
+    bf16_cpu = on_cpu(bf16_refs)
     torch.cuda.empty_cache()
 
     def timed(fn):
@@ -1149,7 +1414,7 @@ def main() -> int:
 
     def attack_flagship_phase():
         # the full ids flagship (EoT-32, batch 4) under the ids suite's
-        # DeepFool (8 classes, max_iter cut to ATTACK_DF_ITERS) and APGD-CE at
+        # DeepFool (8 classes, max_iter cut to FLAGSHIP_DF_ITERS) and APGD-CE at
         # AutoAttack's first bound for ATTACK_APGD_ITERS steps
         defense = flagship(initial_noise_eps=2.0, device=dev, seed=0)
         net = eot_wrap(defense, eot_steps=EOT_STEPS)
@@ -1162,7 +1427,7 @@ def main() -> int:
         res, sec, peak = timed(lambda: attacks.deepfool_attack(
             net, images, labels, torch.Generator(device=dev).manual_seed(7),
             num_classes=s.deepfool_num_classes, overshoot=s.deepfool_overshoot,
-            max_iter=ATTACK_DF_ITERS, return_iters=True, cotangent_chunk=ATTACK_COT_CHUNK))
+            max_iter=FLAGSHIP_DF_ITERS, return_iters=True, cotangent_chunk=ATTACK_COT_CHUNK))
         out["deepfool"] = {**check_attack("deepfool", res, ATTACK_BATCH),
                            "classes": s.deepfool_num_classes, "iters": res[3],
                            "cotangent_chunk": ATTACK_COT_CHUNK, "seconds": sec,
@@ -1186,8 +1451,9 @@ def main() -> int:
 
     def attack_remat_phase():
         # remat on, as the gender and cars factories set it: APGD-CE on the
-        # full gender defense (batch 2, EoT-32 in chunks of REMAT_EOT_CHUNK),
-        # then one input gradient of the full cars defense (batch 4, EoT-32)
+        # full gender defense (batch REMAT_GENDER_BATCH, EoT-32 in chunks of
+        # REMAT_EOT_CHUNK), then one input gradient of the full cars defense
+        # (batch REMAT_CARS_BATCH, EoT-32)
         out = {"eot_steps": EOT_STEPS, "eot_chunk": REMAT_EOT_CHUNK}
         # first, remat on the card: the small gender defense's class
         # gradients with remat on and off, from a CUDA generator seeded alike
@@ -1209,14 +1475,16 @@ def main() -> int:
         if not defense.remat:
             raise RuntimeError("the gender factory left remat off")
         net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=REMAT_EOT_CHUNK)
-        images = torch.rand(GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev, generator=gen)
-        labels = torch.arange(GENDER_BATCH, device=dev) % 2
+        images = torch.rand(REMAT_GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev,
+                            generator=gen)
+        labels = torch.arange(REMAT_GENDER_BATCH, device=dev) % 2
         reset_counts()  # counts from here on are this path's
         res, sec, peak = timed(lambda: attacks.apgd_attack(
             net, images, labels, torch.Generator(device=dev).manual_seed(9),
             REMAT_APGD_ITERS, 0.75, 0.5, True))
         out["gender_apgd_ce"] = {
-            **check_attack("gender apgd_ce", res, GENDER_BATCH), "batch": GENDER_BATCH,
+            **check_attack("gender apgd_ce", res, REMAT_GENDER_BATCH),
+            "batch": REMAT_GENDER_BATCH,
             "iters": REMAT_APGD_ITERS, "max_bound": 0.5, "seconds": sec,
             "s_per_gradient": sec / (REMAT_APGD_ITERS + 1), "max_memory_allocated_gb": peak,
             "k2_launches": k2.launches, "k1_launches": k1.launches}
@@ -1226,6 +1494,7 @@ def main() -> int:
         # one CE input gradient (what an APGD-CE step takes) under each
         # remat_policy, its seconds and peak beside policy None's
         by_policy, grads = {}, {}
+        net = eot_wrap(defense, eot_steps=REMAT_POLICY_EOT, chunk=REMAT_EOT_CHUNK)
         for policy in (None, *REMAT_POLICIES):
             defense.remat_policy = policy
 
@@ -1245,15 +1514,16 @@ def main() -> int:
                     raise RuntimeError(f"gender CE gradient under {policy}: {err} from policy "
                                        f"None's > {POLICY_RTOL}")
         defense.remat_policy = None
-        out["gender_ce_grad_by_policy"] = {"batch": GENDER_BATCH, **by_policy}
+        out["gender_ce_grad_by_policy"] = {"batch": REMAT_GENDER_BATCH,
+                                           "eot_steps": REMAT_POLICY_EOT, **by_policy}
         del defense, net, grads
         torch.cuda.empty_cache()
 
         defense = cars.cars_defense(device=dev, seed=0)
         net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=REMAT_EOT_CHUNK)
-        images = torch.rand(CARS_BATCH, cars.IMAGE_SIZE, cars.IMAGE_SIZE, 3, device=dev,
+        images = torch.rand(REMAT_CARS_BATCH, cars.IMAGE_SIZE, cars.IMAGE_SIZE, 3, device=dev,
                             generator=gen)
-        cotangent = torch.randn(CARS_BATCH, cars.N_CLASSES, device=dev, generator=gen)
+        cotangent = torch.randn(REMAT_CARS_BATCH, cars.N_CLASSES, device=dev, generator=gen)
 
         def input_grad():
             x = images.clone().requires_grad_(True)
@@ -1266,86 +1536,29 @@ def main() -> int:
                 or k2.launches == 0:
             raise RuntimeError(f"cars input gradient: shape {tuple(grad.shape)}, finite "
                                f"{bool(torch.isfinite(grad).all())}, K2 {k2.launches} launches")
-        out["cars_input_grad"] = {"batch": CARS_BATCH, "remat": defense.remat, "seconds": sec,
+        out["cars_input_grad"] = {"batch": REMAT_CARS_BATCH, "remat": defense.remat,
+                                  "seconds": sec,
                                   "max_memory_allocated_gb": peak, "finite": True,
                                   "k2_launches": k2.launches, "k1_launches": k1.launches}
         return out
-
-    import tempfile
-    from pathlib import Path
-
-    # phases harness_files, harness and alpha_search share one directory: the
-    # flagship's checkpoints (2.75 GB, written once), the config copy and the
-    # 6 PNGs
-    root = Path(__file__).resolve().parent
-    (root / ".scratch").mkdir(exist_ok=True)  # gitignored
-    scratch = tempfile.TemporaryDirectory(prefix="harness_", dir=root / ".scratch")
-    shared = {}  # what a phase leaves to a later one
-
-    def harness_files_phase():
-        # the harness's float32 flagship, its 6 PNGs and its files: the
-        # converter CLI's two processes (host numpy, about 15-18 s) run
-        # while the next phases use the card; the harness phase collects them
-        import numpy as np
-        from gen_adversarial_tpu_torch.core.config import DefenseConfig
-        from gen_adversarial_tpu_torch.data import png
-        from gen_adversarial_tpu_torch.eval.harness import batch_generator
-
-        out = {"nvidia_smi": device_info["nvidia_smi"]}
-        tmp = Path(scratch.name)
-        built = flagship(initial_noise_eps=2.0, device=dev, seed=0)
-        # the config's alphas are rounded to two decimals: the built
-        # defense takes them, so the loaded one computes the same logits
-        cfg = DefenseConfig.from_yaml(root / "configs" / "ours_linear_noise_ids.yaml")
-        built.alphas.copy_(torch.as_tensor(np.asarray(cfg.interpolation_alphas, np.float32)
-                                           * np.float32(cfg.alpha_attenuation)))
-        # 6 images in two class folders, 'a' (label 0: images 0-2, all in
-        # the first batch) and 'b' (label 1). Random weights put every
-        # image on one class by ~0.29 and move a logit by ~1e-3 from draw
-        # to draw, so no image would be classified right: the head's
-        # class-0 bias is raised until image 0 wins class 0 under the
-        # harness's clean draw by HARNESS_MARGIN_SIGMAS x the std of its
-        # margin over 8 draws (the harness's 4 stages of batch 0 and 4
-        # more). Images 1-2 then fall either side of the boundary.
-        rng = np.random.RandomState(0)
-        pixels = (rng.rand(HARNESS_IMAGES, 64, 64, 3) * 255).astype(np.uint8)
-        for i, image in enumerate(pixels):
-            png.write(tmp / "images" / ("a" if i < HARNESS_IMAGES // 2 else "b")
-                      / f"{i}.png", image)
-        first = torch.tensor(pixels[:HARNESS_BATCH] / np.float32(255.0), device=dev)
-        net = eot_wrap(built, EOT_STEPS)
-
-        def margin_lost(logits):  # best other class minus class 0
-            return logits[:, 1:].max(1).values - logits[:, 0]
-
-        with torch.no_grad():
-            draws = [batch_generator(HARNESS_SEED, 0, 0, stage, dev) for stage in range(4)]
-            draws += [torch.Generator(device=dev).manual_seed(100 + i) for i in range(4)]
-            lost = torch.stack([margin_lost(net(first, d))[0] for d in draws])
-            sigma = lost.std().item()
-            built.classifier.classifier.fc1.bias[0] += \
-                lost[0].item() + HARNESS_MARGIN_SIGMAS * sigma
-            clean = net(first, batch_generator(HARNESS_SEED, 0, 0, 0, dev)).argmax(1)
-        out["image0_margin"] = {"sigma": sigma, "margin": HARNESS_MARGIN_SIGMAS * sigma}
-        # the 'a' images the harness's clean predictions get right
-        right = [i for i in range(HARNESS_IMAGES // 2) if clean[i].item() == 0]
-        if 0 not in right:
-            raise RuntimeError(f"image 0 is not on class 0 after the bias: {clean.tolist()}")
-        del net, first
-        torch.cuda.synchronize()
-        # the checkpoints: reference-format .pt files of the built modules,
-        # converted by the converter CLI in processes of their own, which run
-        # through the next phases (see reference_files_round_trip)
-        shared.update(built=built, right=right, conversion=reference_files_round_trip(
-            torch, built.purifier, built.classifier, FLAGSHIP_NVAE, tmp, root))
-        return out
-
-    run_phase("harness_files", harness_files_phase)
 
     from gen_adversarial_tpu_torch.defenses.base import REMAT_POLICIES
 
     attack_rm = run_phase("attack_remat", attack_remat_phase)
     torch.cuda.empty_cache()
+
+    def cpu_refs_phase():
+        # the worker's references (see on_cpu): wait for all, then the checks
+        # of phases grad and attacks_parity against them
+        from concurrent.futures import wait
+        t = time.monotonic()
+        wait(submitted)
+        out = {"waited_s": time.monotonic() - t, "jobs": len(submitted)}
+        for name, check in deferred.items():
+            out[name] = check()
+        return out
+
+    run_phase("cpu_refs", cpu_refs_phase)
 
     # ---- bfloat16 (core/precision.defense_astype): the kernels' bfloat16
     # builds, the three full-width forwards, small defenses against the CPU's
@@ -1400,9 +1613,9 @@ def main() -> int:
             ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk, *aff))
             ms_bf16_weights = cuda_ms(torch, lambda: k1.depthwise_silu_segment(x, wk16, *aff16))
             plain_ms = cuda_ms(torch, lambda: k1.depthwise_silu_segment_plain(x, wk, *aff),
-                               BF16_SLOW_REPS, warmup=1)
+                               BF16_SLOW_REPS, warmup=0)
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w, padding=2, groups=c),
-                                 LIBRARY_REPS)
+                                 LIBRARY_REPS, LIBRARY_WARMUP)
             elements = x.numel()
             # bfloat16 x and y, float32 taps and affines; float32 arithmetic
             bytes_moved = 2 * elements * 2 + (25 + 4) * c * 4
@@ -1440,9 +1653,9 @@ def main() -> int:
             w2d = torch.outer(kf, kf).to(bf16).expand(c, 1, len(taps), len(taps)).contiguous()
             ms = cuda_ms(torch, lambda: k2.upfirdn_blur(x, taps, BLUR_PAD))
             plain_ms = cuda_ms(torch, lambda: k2.blur_plain(x, taps, BLUR_PAD), BF16_SLOW_REPS,
-                               warmup=1)
+                               warmup=0)
             library_ms = cuda_ms(torch, lambda: F.conv2d(x, w2d, padding=1, groups=c),
-                                 LIBRARY_REPS)
+                                 LIBRARY_REPS, LIBRARY_WARMUP)
             byte_ms = 1e3 * (x.numel() + y.numel()) * 2 / HBM_BYTES_PER_S
             op_ms = 1e3 * y.numel() * K2_FLOP_PER_OUTPUT / F32_FLOP_PER_S
             rows.append({"C": c, "H_in": h, "H_out": y.shape[2], "N": n_images,
@@ -1520,16 +1733,14 @@ def main() -> int:
         torch.cuda.synchronize()
         return 1e6 * (time.monotonic() - start) / reps
 
-    def timed_and_traced(call):
-        """One untraced call and one traced call, each ending in a
-        synchronize: the untraced call's host seconds, the traced call's
-        summed device kernel seconds, their ratio (the busy share; kernels
-        that overlap can take it above 1) and the kernel seconds by kind."""
-        t = time.monotonic()
-        call()
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed_and_traced(call, wall_s):
+        """One traced call, ending in a synchronize, beside wall_s, the host
+        seconds of an untraced call of the same work: its summed device
+        kernel seconds, their ratio (the busy share; kernels that overlap can
+        take it above 1) and the kernel seconds by kind. The trace records the
+        device's activity only: recording every host op as well cost the
+        phase several seconds of host time."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         kernels_ = kernel_times(prof, torch)
@@ -1543,12 +1754,13 @@ def main() -> int:
         return {"wall_s": wall_s, "device_kernel_s": device_s,
                 "busy_share": device_s / wall_s, "by_kind_s": by_kind}
 
-    def bf16_forward(name, make, batch, size, classes, seed):
+    def bf16_forward(name, make, batch, size, classes, seed, wall32):
         """One full-width defense: a float32 call, then the same weights cast
         by defense_astype and the same draws' seed in bfloat16: one warm-up
         call (compared with the float32 one), then the timed calls. In each
-        dtype one more call untraced and one traced give the device's busy
-        share in this run, and the host's launch cost is taken before the
+        dtype one traced call gives the device's busy share in this run,
+        against the last timed call (in float32 wall32, the path's float32
+        phase's), and the host's launch cost is taken before the
         timed calls: the bfloat16 flagship's device idles most of its call,
         and its rate varies from run to run."""
         t = time.monotonic()
@@ -1560,7 +1772,7 @@ def main() -> int:
         with torch.no_grad():
             ref = net(images, torch.Generator(device=dev).manual_seed(seed))
             draws32 = torch.Generator(device=dev).manual_seed(seed)
-            busy32 = timed_and_traced(lambda: net(images, draws32))
+            busy32 = timed_and_traced(lambda: net(images, draws32), wall32)
             defense_astype(defense)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1575,7 +1787,7 @@ def main() -> int:
                 times.append(time.monotonic() - t)
             launched = {dtype: (k1.launches_by_dtype[dtype], k2.launches_by_dtype[dtype])
                         for dtype in (bf16, torch.float32)}
-            busy16 = timed_and_traced(lambda: net(images, draws))
+            busy16 = timed_and_traced(lambda: net(images, draws), times[-1])
         first, logits = calls[0], calls[-1]
         if logits.dtype != torch.float32 or tuple(logits.shape) != (batch, classes) \
                 or not torch.isfinite(logits).all():
@@ -1599,14 +1811,15 @@ def main() -> int:
 
     def bf16_phase():
         out = {}
-        for name, make, batch, size, classes, seed, kernel in (
+        # each path's float32 phase timed an untraced call of the same work
+        for name, make, batch, size, classes, seed, kernel, wall32 in (
                 ("flagship", lambda: flagship(initial_noise_eps=2.0, device=dev, seed=0),
-                 BATCH, 64, 100, 1, "k1"),
+                 BATCH, 64, 100, 1, "k1", flag["call_s"][-1]),
                 ("gender", lambda: gender_defense(device=dev, seed=0), GENDER_BATCH,
-                 IMAGE_SIZE, 2, 2, "k2"),
+                 IMAGE_SIZE, 2, 2, "k2", gender["call_s"][-1]),
                 ("cars", lambda: cars.cars_defense(device=dev, seed=0), CARS_BATCH,
-                 cars.IMAGE_SIZE, cars.N_CLASSES, 5, "k2")):
-            out[name] = bf16_forward(name, make, batch, size, classes, seed)
+                 cars.IMAGE_SIZE, cars.N_CLASSES, 5, "k2", cars_run["call_s"][-1])):
+            out[name] = bf16_forward(name, make, batch, size, classes, seed, wall32)
             if out[name][f"{kernel}_launches"] == 0 or out[name]["f32_launches"]:
                 raise RuntimeError(f"{name} in bfloat16: {out[name]}: its kernel's bfloat16 "
                                    "build was not launched, or a float32 one was")
@@ -1614,6 +1827,10 @@ def main() -> int:
         return out
 
     run16 = run_phase("bf16", bf16_phase)
+    # the conversion's check (it reads both files and compares their 2.75 GB
+    # of leaves) on the worker, while the card runs the next phases; phase
+    # harness takes its result
+    shared["conversion"] = cpu_worker.submit(shared["conversion"])
 
     def rel_l2(got, want):
         return ((got.double() - want.double()).norm() / want.double().norm()).item()
@@ -1633,15 +1850,14 @@ def main() -> int:
                          "gpu_vs_cpu_bf16": rel_l2(gpu16, cpu16), "factor": BF16_GAP_FACTOR,
                          **extra}
 
-        for name, (cpu, gpu, x, draws, eot, _), launched in (
-                ("ids", small_ids(), lambda: k1.launches_by_dtype[bf16]),
-                ("gender", small_gender(), lambda: k2.launches_by_dtype[bf16]),
-                ("cars", small_cars(cars.INITIAL_NOISE_EPS, 2, 4),
-                 lambda: k2.launches_by_dtype[bf16])):
-            cpu16, gpu16 = defense_astype(copy.deepcopy(cpu)), defense_astype(gpu)
+        # the CPU's side came from the worker (bf16_refs)
+        made = bf16_cpu.result()
+        for name, launched in (("ids", lambda: k1.launches_by_dtype[bf16]),
+                               ("gender", lambda: k2.launches_by_dtype[bf16]),
+                               ("cars", lambda: k2.launches_by_dtype[bf16])):
+            cpu, cpu16, x, draws, eot, want, got_cpu16 = made[name]
+            gpu16 = defense_astype(copy.deepcopy(cpu).to(dev))
             with torch.no_grad():
-                want = eot_wrap(cpu, eot)(x, draws)
-                got_cpu16 = eot_wrap(cpu16, eot)(x, draws)
                 before = launched()
                 got_gpu16 = eot_wrap(gpu16, eot)(x.to(dev), draws).cpu()
             if launched() == before:
@@ -1653,8 +1869,7 @@ def main() -> int:
         # the small ids defense's class gradients (torch.func.vjp, vmap over
         # the one-hot cotangents), the same way
         cpu, cpu16, gpu16, x, draws, eot = ids
-        want = class_grads(eot_wrap(cpu, eot), x, draws)
-        got_cpu16 = class_grads(eot_wrap(cpu16, eot), x, draws)
+        want, got_cpu16 = made["ids_class_grads"]
         got_gpu16 = class_grads(eot_wrap(gpu16, eot), x.to(dev), draws).cpu()
         if got_gpu16.dtype != torch.float32:
             raise RuntimeError(f"bfloat16 class gradients came back as {got_gpu16.dtype}")
@@ -1692,14 +1907,16 @@ def main() -> int:
 
         defense = defense_astype(gender_defense(device=dev, seed=0))
         net = eot_wrap(defense, eot_steps=EOT_STEPS, chunk=REMAT_EOT_CHUNK)
-        images = torch.rand(GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev, generator=gen)
-        labels = torch.arange(GENDER_BATCH, device=dev) % 2
+        images = torch.rand(REMAT_GENDER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, device=dev,
+                            generator=gen)
+        labels = torch.arange(REMAT_GENDER_BATCH, device=dev) % 2
         reset_counts()  # counts from here on are this path's
         res, sec, peak = timed(lambda: attacks.apgd_attack(
             net, images, labels, torch.Generator(device=dev).manual_seed(9),
             REMAT_APGD_ITERS, 0.75, 0.5, True))
         out["gender_apgd_ce"] = {
-            **check_attack("gender bf16 apgd_ce", res, GENDER_BATCH), "batch": GENDER_BATCH,
+            **check_attack("gender bf16 apgd_ce", res, REMAT_GENDER_BATCH),
+            "batch": REMAT_GENDER_BATCH,
             "remat": defense.remat, "eot_chunk": REMAT_EOT_CHUNK, "iters": REMAT_APGD_ITERS,
             "max_bound": 0.5, "seconds": sec, "s_per_gradient": sec / (REMAT_APGD_ITERS + 1),
             "max_memory_allocated_gb": peak, "adv_dtype": str(res[2].dtype),
@@ -1711,54 +1928,8 @@ def main() -> int:
     attack16 = run_phase("attack_bf16", attack_bf16_phase)
     torch.cuda.empty_cache()
 
-    # phase `distributed`'s two ranks (each about 8 s to reach the card, then
-    # import, rendezvous and two small steps) run while the harness phase
-    # works on the host: started there, collected by `distributed`
-    ddp_ranks = {}
-
-    def start_ddp_ranks():
-        import os
-
-        import numpy as np
-        from gen_adversarial_tpu_torch.core.distributed import TORCHRUN_ENV
-        from gen_adversarial_tpu_torch.data import png
-
-        tmp = Path(scratch.name) / "ddp"
-        rng = np.random.RandomState(TRAIN_SEED)
-        for split, counts in (("train", DDP_TRAIN), ("validation", DDP_VALIDATION)):
-            for cls, count in counts.items():
-                for i in range(count):
-                    png.write(tmp / "data" / split / cls / f"{i}.png",
-                              (rng.rand(DDP_IMAGE, DDP_IMAGE, 3) * 255).astype(np.uint8))
-        env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_ENV}
-        ddp_ranks.update(dir=tmp, t0=time.time(), process=subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-             "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
-             "--master-port", str(_free_port()), str(root / "chip_smoke.py"), "ddp-worker",
-             str(tmp / "data"), str(tmp / "two")],
-            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            start_new_session=True))
-
-    def stop_ddp_ranks() -> str:
-        """The ranks' output once they have ended (their process group
-        killed if they outlast DDP_TIMEOUT_S); '' if none was started."""
-        import os
-        import signal
-
-        ranks = ddp_ranks.pop("process", None)
-        if ranks is None:
-            return ""
-        try:
-            stdout, _ = ranks.communicate(timeout=DDP_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(ranks.pid, signal.SIGKILL)
-            stdout, _ = ranks.communicate()
-        ddp_ranks["returncode"] = ranks.returncode
-        return stdout
-
     def harness_phase():
         # the evaluation entry points on the float32 flagship, from files
-        start_ddp_ranks()
         import re
         from functools import partial
 
@@ -1772,9 +1943,10 @@ def main() -> int:
                "images": HARNESS_IMAGES, "eot_steps": EOT_STEPS}
         tmp = Path(scratch.name)
         built, right = shared["built"], shared["right"]
-        # the converter processes started by harness_files have run meanwhile
+        # the converter processes started by harness_files have run meanwhile,
+        # and the worker has checked their files
         t = time.monotonic()
-        out["conversion"] = shared.pop("conversion")()
+        out["conversion"] = shared.pop("conversion").result()
         out["conversion_wait_s"] = time.monotonic() - t
         out["checkpoint_gb"] = sum((tmp / f).stat().st_size
                                    for f in ("nvae.msgpack", "vgg.msgpack")) / 1e9
@@ -2415,8 +2587,10 @@ def main() -> int:
                 config = tmp / f"{name}.yaml"
                 config.write_text(text)
                 cfg = DefenseConfig.from_yaml(config)
+                t = time.monotonic()
                 model = flax_init_(purifier(kind, cfg, size), cgen)
                 save_variables(tmp / f"{name}.msgpack", to_jax_variables(model))
+                write_s = time.monotonic() - t
                 n_params = sum(p.numel() for p in model.parameters())
                 del model
                 t = time.monotonic()
@@ -2439,18 +2613,21 @@ def main() -> int:
                                        f"{bool(torch.isfinite(logits).all())}")
                 mean_s = sum(call_s[1:]) / TIMED_CALLS
                 out[name] = {"batch": batch, "image_size": size, "purifier_params": n_params,
-                             "load_defense_s": load_s, "call_s": call_s,
+                             "init_and_write_s": write_s, "load_defense_s": load_s,
+                             "call_s": call_s,
                              "images_per_s": batch / mean_s,
                              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
                 configs[name] = (config, loaded, images)
 
         # the ids pair under the attacks: a DeepFool step (the suite's 8
-        # class cotangents in blocks of ATTACK_COT_CHUNK) and an APGD-CE
-        # input gradient, through EoT-32
+        # class cotangents in blocks of COMPETITOR_DF_COT_CHUNK) and an
+        # APGD-CE input gradient, through EoT-32, on COMPETITOR_ATTACK_BATCH
+        # images
         s = ATTACK_SUITES["ids"]
         for kind in ("avae", "ndvae"):
             name = f"competitor_{kind}_ids"
             _, loaded, images = configs[name]
+            images = images[:COMPETITOR_ATTACK_BATCH]
             chunk = COMPETITOR_DF_COT_CHUNK[kind]
             with torch.no_grad():
                 labels = loaded.net(images, torch.Generator(device=dev).manual_seed(5)).argmax(1)
@@ -2459,7 +2636,8 @@ def main() -> int:
                 num_classes=s.deepfool_num_classes, overshoot=s.deepfool_overshoot, max_iter=1,
                 return_iters=True, cotangent_chunk=chunk))
             out[name]["deepfool_step"] = {**check_attack(name + " deepfool", res, len(images)),
-                                          "seconds": sec, "max_memory_allocated_gb": peak,
+                                          "batch": len(images), "seconds": sec,
+                                          "max_memory_allocated_gb": peak,
                                           "cotangent_chunk": chunk, "eot_chunk": None}
 
             def ce_grad():  # what an APGD-CE step takes
@@ -2709,7 +2887,7 @@ def main() -> int:
 
     def distributed_phase():
         # data parallel (core/distributed.py): the two gloo ranks sharing the
-        # card, started by the harness phase, have run the classifier CLI;
+        # card, started after phase harness_files, have run the classifier CLI;
         # this process, in an NCCL group of one, reruns the harness's
         # DeepFool with distributed=True (before alpha_search writes the
         # loaded defense's alphas), times the flagship VGG11-BN's step in
@@ -2801,7 +2979,7 @@ def main() -> int:
                                + "\n".join(stdout.splitlines()[-30:]))
         reports = [json.loads(p.read_text()) for p in reports]
         # from the launch to the last rank's end, while the harness phase ran
-        out["two_ranks"] = {"started_in": "harness",
+        out["two_ranks"] = {"started_in": "harness_files",
                             "wall_s": max(r["ended"] for r in reports) - ddp_ranks["t0"]}
         if not reports[0]["history"] or reports[0]["history"] != reports[1]["history"]:
             raise RuntimeError(f"the two ranks' histories differ: {reports}")
@@ -2840,9 +3018,12 @@ def main() -> int:
         # and its input (pad (1, 1)), both ch[r] channels at r x r
         sites = [(ch[2 ** i], 2 ** i) for i in range(int(math.log2(DISC_SIZE)), 2, -1)]
         disc_taps = tuple(t / sum(BLUR_KERNEL) for t in BLUR_KERNEL)
-        out["k2"] = {"taps": list(disc_taps),
-                     "pad_2": k2_rows(sites, DISC_BATCH, (2, 2), disc_taps),
-                     "pad_1": k2_rows(sites, DISC_BATCH, (1, 1), disc_taps)}
+        # the library call as many times as the kernel: at the small sites
+        # both are host-bound, and the two are compared there
+        reps = (KERNEL_REPS, 3)
+        out["k2"] = {"taps": list(disc_taps), "library_reps": KERNEL_REPS,
+                     "pad_2": k2_rows(sites, DISC_BATCH, (2, 2), disc_taps, reps),
+                     "pad_1": k2_rows(sites, DISC_BATCH, (1, 1), disc_taps, reps)}
 
         gen_d = torch.Generator(device=dev).manual_seed(COMPETITOR_SEED)
         disc = random_init_(Discriminator(DISC_SIZE, device=dev), gen_d, init_stylegan_tensor_)

@@ -25,20 +25,35 @@
 // on chip. Neighbouring blocks re-read the halo, which mostly hits the 50 MB
 // L2.
 //
-// float32 layout (`blur_f32_kernel`): a block owns a 16-row x 8-column
-// output tile and one 32-channel tile of one image. A warp's 32 lanes cover
-// 32 consecutive channels of one pixel, so every load and store is one
-// coalesced 128-byte transaction (at C = 32, the 1024-px generator block,
-// exactly one pixel) and every shared-memory access is free of bank
-// conflicts. Each thread first issues all its staging loads into registers
-// (so many loads are in flight at once), then writes them to shared memory.
-// After that, warp `col` walks down output column `col`: each staged row
-// feeds the vertical sums of the taps columns the output column needs, kept
-// in registers, and each finished output row is the horizontal sum of those
-// vertical sums. It reaches about 58 % of its byte bound (PERF.md).
+// float32 layout (`blur_f32_kernel`). The first float32 design moved
+// one 4-byte channel a lane (128 bytes a warp access): a thread issued some
+// 27 scalar staging loads, each with its own bounds test and 64-bit offset,
+// for a 16 x 8 output tile that staged 1.63 pixels an output, and it reached
+// 58 % of its byte bound. This one takes the bfloat16 layout below in
+// float32: a lane moves 16 bytes, four channels, in every global access; a
+// block owns a 16-row x (33 - taps)-column output tile of 32 channels
+// (eight 4-channel vectors; 1.31 staged pixels an output), 256 threads, in
+// two passes through the same 64 KB float32 shared tile of vertical sums:
+// 1. Vertical. Thread (vector v, staged column c) loads the 16 + taps - 1
+//    input pixels of its column (16 bytes each, all issued before the first
+//    is used; zeros outside the image) and writes its 16 vertical sums. A
+//    warp reads 4 neighbouring pixels' 32 channels: 512 contiguous bytes at
+//    C = 32.
+// 2. Horizontal. Thread (vector v, output row, column half) slides along its
+//    (up to) 16 output columns, keeping the last taps vertical sums in
+//    registers, and stores each output's 4 channels as one 16-byte store.
+// A quarter-warp's 8 vectors are one pixel's 128 contiguous bytes of the
+// shared tile in both passes, so no swizzle is needed. It reaches 87-89 % of
+// its byte bound over a decode, as fast as a copy of the same bytes at the
+// 1024-px site (PERF.md). Staging by TMA (a 4-D tensor map over x, a ring of
+// two tiles in one persistent block an SM, as K1 does) was 3-23 % slower at
+// every site of 33 px and up, and was not kept. Where C is not a multiple of
+// 4 (or x or y not 16-byte aligned) the same kernel moves each vector as 4
+// masked scalars (`kVec` false): the same sums in the same order, so both
+// paths, and the first design, give the same bits.
 //
 // bfloat16 layout (`blur_bf16_kernel`). One channel a lane would move 64
-// bytes a warp instruction, and the float32 layout's time did not fall when
+// bytes a warp instruction, and the first float32 layout's time did not fall when
 // its bytes halved: the loads and stores a warp issues, not the bytes,
 // bound it. So a lane moves 16 bytes, eight channels, in every global
 // access: a block owns a 16-row x (33 - taps)-column output tile of 32
@@ -74,9 +89,7 @@
 
 namespace {
 
-constexpr int kTileC = 32;  // channels per block (float32: one warp's lanes)
-constexpr int kWarps = 8;   // float32: output columns per block, one per warp
-constexpr int kTileW = kWarps;
+constexpr int kTileC = 32;  // channels per block
 constexpr int kTileH = 16;  // output rows per block
 constexpr int kMaxTaps = 4;
 constexpr int kMaxDevices = 64;
@@ -84,75 +97,6 @@ constexpr int kMaxDevices = 64;
 struct Taps {
   float k[kMaxTaps];  // flipped taps (the correlation taps)
 };
-
-template <int T>
-__global__ void __launch_bounds__(kTileC * kWarps)
-blur_f32_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, int C,
-                int pad0, int h_out, int w_out, int tiles_w, Taps taps) {
-  constexpr int kRows = kTileH + T - 1;  // staged rows
-  constexpr int kCols = kTileW + T - 1;  // staged columns
-  constexpr int kPix = kRows * kCols;
-  constexpr int kStaged = (kPix + kWarps - 1) / kWarps;  // staged pixels per thread
-  __shared__ float tile[kPix][kTileC];
-
-  const int lane = threadIdx.x;  // channel within the tile
-  const int col = threadIdx.y;   // output column within the tile
-  const int c = blockIdx.y * kTileC + lane;
-  const bool c_ok = c < C;
-  const int i0 = (blockIdx.x / tiles_w) * kTileH;
-  const int j0 = (blockIdx.x % tiles_w) * kTileW;
-  const int64_t n = blockIdx.z;
-  const float* xn = x + n * H * W * C;
-
-  // stage the tile and its halo; zeros outside the image (the padding)
-  float v[kStaged];
-#pragma unroll
-  for (int s = 0; s < kStaged; ++s) {
-    const int p = col + s * kWarps;
-    const int h = i0 - pad0 + p / kCols;
-    const int w = j0 - pad0 + p % kCols;
-    v[s] = (p < kPix && c_ok && h >= 0 && h < H && w >= 0 && w < W)
-               ? __ldg(xn + ((int64_t)h * W + w) * C + c)
-               : 0.0f;
-  }
-#pragma unroll
-  for (int s = 0; s < kStaged; ++s) {
-    const int p = col + s * kWarps;
-    if (p < kPix) tile[p][lane] = v[s];
-  }
-  __syncthreads();
-
-  const int j = j0 + col;
-  if (!c_ok || j >= w_out) return;
-  float k[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) k[t] = taps.k[t];
-  float* yn = y + n * h_out * w_out * C;
-
-  // vert[b][i]: the vertical sum for output row i at staged column col + b;
-  // staged row r adds tap r - i to rows r - T + 1 .. r, and completes row
-  // r - T + 1
-  float vert[T][kTileH];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int b = 0; b < T; ++b) {
-      const float s = tile[r * kCols + col + b][lane];
-#pragma unroll
-      for (int a = 0; a < T; ++a) {
-        const int i = r - a;
-        if (i >= 0 && i < kTileH) vert[b][i] = a == 0 ? s * k[0] : fmaf(s, k[a], vert[b][i]);
-      }
-    }
-    const int i = r - (T - 1);
-    if (i >= 0 && i0 + i < h_out) {
-      float out = vert[0][i] * k[0];
-#pragma unroll
-      for (int b = 1; b < T; ++b) out = fmaf(vert[b][i], k[b], out);
-      yn[((int64_t)(i0 + i) * w_out + j) * C + c] = out;
-    }
-  }
-}
 
 // the bfloat16 build: see the header (bfloat16 layout)
 constexpr int kVecC = 8;                  // channels a lane moves: 16 bytes
@@ -303,15 +247,138 @@ blur_bf16_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict_
   }
 }
 
-template <int T>
-int launch_f32(const float* x, float* y, int n, int h, int w, int c, int pad0, int h_out,
-               int w_out, Taps kf, cudaStream_t stream) {
-  const int tiles_w = (w_out + kTileW - 1) / kTileW;
+// the float32 build: see the header (float32 layout)
+constexpr int kF32Vec = 4;                            // channels a lane moves: 16 bytes
+constexpr int kF32Vecs = kTileC / kF32Vec;            // vectors a pixel of the channel tile
+constexpr int kF32Threads = kF32Vecs * kStagedCols;   // one (vector, staged column) each
+constexpr int kHalfCols = kStagedCols / 2;            // output columns of a horizontal thread
+static_assert(kF32Threads == 256, "the vertical pass gives every thread one staged column");
+static_assert(kF32Vecs * kTileH * 2 == kF32Threads, "the horizontal pass: two column halves");
+
+// the 16-byte unit of the vertical sums of (output row i, staged column c,
+// vector v): a quarter-warp's 8 vectors of one pixel are 128 contiguous
+// bytes, so both passes' 128-bit accesses are free of bank conflicts
+__device__ __forceinline__ int f32_unit(int i, int c, int v) {
+  return (i * kStagedCols + c) * kF32Vecs + v;
+}
+__device__ __forceinline__ float4 mul4(float4 a, float k) {
+  return make_float4(a.x * k, a.y * k, a.z * k, a.w * k);
+}
+__device__ __forceinline__ float4 fma4(float4 a, float k, float4 s) {
+  return make_float4(fmaf(a.x, k, s.x), fmaf(a.y, k, s.y), fmaf(a.z, k, s.z), fmaf(a.w, k, s.w));
+}
+
+template <int T, bool kVec>
+__global__ void __launch_bounds__(kF32Threads, 2)
+blur_f32_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, int C,
+                int pad0, int h_out, int w_out, int tiles_w, Taps taps) {
+  constexpr int kTileWOut = kStagedCols - (T - 1);  // output columns a block
+  constexpr int kRows = kTileH + T - 1;             // staged rows
+  extern __shared__ __align__(16) float4 f32_sums[];
+
+  const int i0 = (blockIdx.x / tiles_w) * kTileH;
+  const int j0 = (blockIdx.x % tiles_w) * kTileWOut;
+  const int64_t n = blockIdx.z;
+  const int v = threadIdx.x % kF32Vecs;
+  const int cb = blockIdx.y * kTileC + v * kF32Vec;  // first channel of the vector
+  float k[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) k[t] = taps.k[t];
+
+  // 1. vertical: (vector v, staged column c)
+  {
+    const int c = threadIdx.x / kF32Vecs;
+    const int w = j0 - pad0 + c;
+    const bool col_ok = w >= 0 && w < W && cb < C;
+    const float* xc = x + ((n * H) * W + w) * (int64_t)C + cb;
+    float4 raw[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int h = i0 - pad0 + r;
+      raw[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (col_ok && h >= 0 && h < H) {
+        const float* p = xc + (int64_t)h * W * C;
+        if (kVec) {
+          raw[r] = __ldg(reinterpret_cast<const float4*>(p));
+        } else {
+          raw[r].x = __ldg(p);
+          if (cb + 1 < C) raw[r].y = __ldg(p + 1);
+          if (cb + 2 < C) raw[r].z = __ldg(p + 2);
+          if (cb + 3 < C) raw[r].w = __ldg(p + 3);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTileH; ++i) {
+      float4 s = mul4(raw[i], k[0]);
+#pragma unroll
+      for (int a = 1; a < T; ++a) s = fma4(raw[i + a], k[a], s);
+      f32_sums[f32_unit(i, c, v)] = s;
+    }
+  }
+  __syncthreads();
+
+  // 2. horizontal: (vector v, output row, column half)
+  const int row = (threadIdx.x / kF32Vecs) % kTileH;
+  const int half = threadIdx.x / (kF32Vecs * kTileH);
+  const int gi = i0 + row;
+  if (gi >= h_out || cb >= C) return;
+  const int jl0 = half * kHalfCols;
+  float* yr = y + ((n * h_out + gi) * w_out) * (int64_t)C + cb;
+  float4 win[T];  // the vertical sums of staged columns jl .. jl + T - 1
+#pragma unroll
+  for (int b = 0; b < T - 1; ++b) win[b] = f32_sums[f32_unit(row, jl0 + b, v)];
+#pragma unroll
+  for (int q = 0; q < kHalfCols; ++q) {
+    const int jl = jl0 + q;
+    const int gj = j0 + jl;
+    if (jl >= kTileWOut || gj >= w_out) break;
+    win[(q + T - 1) % T] = f32_sums[f32_unit(row, jl + T - 1, v)];
+    float4 out = mul4(win[q % T], k[0]);
+#pragma unroll
+    for (int b = 1; b < T; ++b) out = fma4(win[(q + b) % T], k[b], out);
+    float* p = yr + (int64_t)gj * C;
+    if (kVec) {
+      *reinterpret_cast<float4*>(p) = out;
+    } else {
+      p[0] = out.x;
+      if (cb + 1 < C) p[1] = out.y;
+      if (cb + 2 < C) p[2] = out.z;
+      if (cb + 3 < C) p[3] = out.w;
+    }
+  }
+}
+
+template <int T, bool kVec>
+int launch_f32_vec(const float* x, float* y, int n, int h, int w, int c, int pad0, int h_out,
+                   int w_out, Taps kf, int device, cudaStream_t stream) {
+  // above 48 KB, dynamic shared memory needs the kernel's consent, once per
+  // device and instance
+  static bool consented[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!consented[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blur_f32_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSumBytes);
+    if (err != cudaSuccess) return (int)err;
+    consented[device] = true;
+  }
+  constexpr int kTileWOut = kStagedCols - (T - 1);
+  const int tiles_w = (w_out + kTileWOut - 1) / kTileWOut;
   const int tiles_h = (h_out + kTileH - 1) / kTileH;
   const dim3 grid(tiles_h * tiles_w, (c + kTileC - 1) / kTileC, n);
-  blur_f32_kernel<T><<<grid, dim3(kTileC, kWarps), 0, stream>>>(x, y, h, w, c, pad0, h_out,
-                                                              w_out, tiles_w, kf);
+  blur_f32_kernel<T, kVec><<<grid, kF32Threads, kSumBytes, stream>>>(
+      x, y, h, w, c, pad0, h_out, w_out, tiles_w, kf);
   return (int)cudaGetLastError();
+}
+
+template <int T>
+int launch_f32(const float* x, float* y, int n, int h, int w, int c, int pad0, int h_out,
+               int w_out, Taps kf, int device, cudaStream_t stream) {
+  // 16-byte vectors need every pixel's channels 16-byte aligned
+  const bool vec = c % kF32Vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  auto go = vec ? launch_f32_vec<T, true> : launch_f32_vec<T, false>;
+  return go(x, y, n, h, w, c, pad0, h_out, w_out, kf, device, stream);
 }
 
 template <int T, bool kVec>
@@ -356,13 +423,18 @@ int launch(bool bf16, const void* x, void* y, int n, int h, int w, int c, int pa
   if (bf16)
     return launch_bf16<T>((const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, h, w, c, pad0, h_out,
                           w_out, kf, device, stream);
-  return launch_f32<T>((const float*)x, (float*)y, n, h, w, c, pad0, h_out, w_out, kf, stream);
+  return launch_f32<T>((const float*)x, (float*)y, n, h, w, c, pad0, h_out, w_out, kf, device,
+                       stream);
 }
 
 int launch_taps(bool bf16, const void* x, void* y, int n, int h, int w, int c, int pad0,
                 int pad1, const float* taps, int ntaps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  // the launch goes to the current device: switch only when it is another
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ntaps) {
     case 3:

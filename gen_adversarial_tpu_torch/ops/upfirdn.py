@@ -7,9 +7,10 @@ an H100 is memory: per element about one read of x and one write of y
 (8 bytes in float32, 4 in bfloat16) against 2 * taps multiply-adds. The
 kernel reads x once with its halo, zero-padding at the edges as it loads (no
 padded copy of x), runs the vertical then the horizontal pass on chip, and
-writes y once. The float32 build moves one channel a lane; the bfloat16
-build eight, in 16-byte loads and stores, with a masked scalar path for
-widths that are not a multiple of 8 (see the source's header).
+writes y once. Both builds move 16 bytes a lane in every load and store,
+four channels in float32 and eight in bfloat16; a width that is not a
+multiple of 4 (float32) or 8 (bfloat16), or an x or y that is not 16-byte
+aligned, takes a masked path of the same sums (see the source's header).
 
 `x` is an NCHW tensor in `torch.channels_last` memory format (the kernel
 reads it as NHWC), float32 or bfloat16 (the model's dtype, which y keeps;
@@ -21,13 +22,16 @@ upfirdn order: the kernel flips them, as the JAX function does. `pad` is
 
 On a CUDA tensor `upfirdn_blur` launches the kernel of x's dtype
 (`gat_upfirdn_blur_f32` or `_bf16`) or raises; a CPU tensor takes
-`blur_plain`. The gradient (`torch.autograd.Function`) is the JAX
-custom VJP `_blur_bwd`: the same blur of the cotangent with the taps flipped
-and pad (taps - 1 - pad0, taps - 1 - pad1), through the same kernel. The taps
+`blur_plain`. The gradient (`torch.autograd.Function`) is the JAX custom
+VJP `_blur_bwd`: the same blur of the cotangent with the taps flipped and
+pad (taps - 1 - pad0, taps - 1 - pad1), through the same kernel. The taps
 are fixed constants and get no cotangent. The Function works under
 torch.func (grad, vjp, vmap); its vmap rule folds the vmapped dim into N, as
 `pallas_blur`'s custom_vmap rule does, so vmap over a vjp (an attack's class
-gradients) reaches the kernel as one launch.
+gradients) reaches the kernel as one launch. A call that autograd does not
+record (no gradient wanted, no torch.func transform) skips the Function,
+whose `apply` costs more host time than a small site's kernel takes on the
+card.
 """
 
 from __future__ import annotations
@@ -99,15 +103,19 @@ def _lib():
     return _lib_handle
 
 
-def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]):
-    if x.dim() != 4:
-        raise ValueError(f"x must be (N, C, H, W), got shape {tuple(x.shape)}")
+def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]) -> tuple[int, int]:
+    """The output's height and width; raises on what the blur does not take
+    (on a CUDA tensor, on what the kernel does not take)."""
+    shape = x.shape
+    if len(shape) != 4:
+        raise ValueError(f"x must be (N, C, H, W), got shape {tuple(shape)}")
     if len(pad) != 2:
         raise ValueError(f"pad must be (pad0, pad1), got {pad}")
-    h, w = x.shape[2], x.shape[3]
-    if min(out_size(h, len(taps), pad), out_size(w, len(taps), pad)) <= 0:
+    grow = pad[0] + pad[1] - len(taps) + 1  # out_size - size
+    h_out, w_out = shape[2] + grow, shape[3] + grow
+    if h_out <= 0 or w_out <= 0:
         raise ValueError(f"{len(taps)} taps with pad {tuple(pad)} leave no output "
-                         f"of a {h}x{w} image")
+                         f"of a {shape[2]}x{shape[3]} image")
     if x.is_cuda:
         if x.dtype not in ENTRY:
             raise TypeError(f"the blur kernel takes float32 or bfloat16 tensors, got {x.dtype}")
@@ -115,30 +123,48 @@ def _check(x: torch.Tensor, taps: tuple, pad: Sequence[int]):
             raise ValueError(f"the blur kernel takes {KERNEL_TAPS} taps, got {len(taps)}")
         if not x.is_contiguous(memory_format=torch.channels_last):
             raise ValueError("x must be contiguous in torch.channels_last format")
-        if x.shape[0] > 65535:
-            raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
+        if shape[0] > 65535:
+            raise ValueError(f"batch {shape[0]} exceeds the kernel's grid limit 65535")
+    return h_out, w_out
+
+
+_host_taps: dict[tuple, ctypes.Array] = {}  # the taps as C floats, made once per value
 
 
 def _launch(x: torch.Tensor, taps: tuple, pad: Sequence[int], lib=None) -> torch.Tensor:
-    # `lib`: another build of the kernel (`declare`d), as an A/B launches it
+    # `lib`: another build of the kernel (`declare`d), as an A/B launches it.
+    # Every step here is host time a small site pays in full: y comes from
+    # empty_strided (half the cost of empty with a memory_format) and the
+    # stream from the raw query (a tenth of torch.cuda.current_stream's)
+    h_out, w_out = _check(x, taps, pad)
     n, c, h, w = x.shape
-    y = torch.empty((n, c, out_size(h, len(taps), pad), out_size(w, len(taps), pad)),
-                    device=x.device, dtype=x.dtype, memory_format=torch.channels_last)
-    if y.numel() == 0:
+    y = torch.empty_strided((n, c, h_out, w_out), (h_out * w_out * c, 1, w_out * c, c),
+                            device=x.device, dtype=x.dtype)
+    if n == 0 or c == 0:
         return y
     if lib is None:
         lib = _lib()
-    host_taps = (ctypes.c_float * len(taps))(*taps)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    host_taps = _host_taps.get(taps)
+    if host_taps is None:
+        host_taps = _host_taps[taps] = (ctypes.c_float * len(taps))(*taps)
+    device = x.get_device()
     rc = getattr(lib, ENTRY[x.dtype])(
-        x.data_ptr(), y.data_ptr(), n, h, w, c, int(pad[0]), int(pad[1]), host_taps,
-        len(taps), x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        stream)
+        x.data_ptr(), y.data_ptr(), n, h, w, c, pad[0], pad[1], host_taps, len(taps), device,
+        torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError("upfirdn_blur kernel launch failed: "
                            + lib.gat_cuda_error_string(rc).decode())
     launches_by_dtype[x.dtype] += 1
     return y
+
+
+def _forward(x: torch.Tensor, taps: tuple, pad: tuple, relayout: bool) -> torch.Tensor:
+    if not x.is_cuda:
+        _check(x, taps, pad)
+        return blur_plain(x, taps, pad)
+    if relayout:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return _launch(x, taps, pad)
 
 
 class _Blur(torch.autograd.Function):
@@ -149,12 +175,7 @@ class _Blur(torch.autograd.Function):
 
     @staticmethod
     def forward(x, taps, pad, relayout):
-        if relayout and x.is_cuda:
-            x = x.contiguous(memory_format=torch.channels_last)
-        _check(x, taps, pad)
-        if x.is_cuda:
-            return _launch(x, taps, pad)
-        return blur_plain(x, taps, pad)
+        return _forward(x, taps, pad, relayout)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -184,4 +205,10 @@ def upfirdn_blur(x: torch.Tensor, taps, pad: Sequence[int]) -> torch.Tensor:
     x: (N, C, H, W), float32 or bfloat16, channels_last on CUDA. A CUDA
     tensor launches the kernel of its dtype (or raises); a CPU tensor runs the
     plain version."""
-    return _Blur.apply(x, tuple(float(t) for t in taps), tuple(int(p) for p in pad), False)
+    taps, pad = tuple(map(float, taps)), tuple(map(int, pad))
+    if (x.requires_grad and torch.is_grad_enabled()) or \
+            torch._C._are_functorch_transforms_active():
+        return _Blur.apply(x, taps, pad, False)
+    # nothing records this call: skip the Function, whose apply alone costs
+    # more host time than a small site's kernel takes on the card
+    return _forward(x, taps, pad, False)

@@ -229,14 +229,19 @@ def test_cuda_blur_matches_plain_version():
 @pytest.mark.gpu
 def test_cuda_blur_backward_matches_plain_autograd():
     """The backward launches the same kernel (flipped taps, transposed
-    pads); it agrees with autograd through the plain version."""
+    pads); it agrees with autograd through the plain version, also at the
+    discriminator's width and pads, at a crop and at 5 images."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for taps, pad in [((0.1, 0.2, 0.3, 0.4), (1, 1)), ((0.1, 0.2, 0.3, 0.4), (2, 1)),
-                      ((1 / 7, 2 / 7, 4 / 7), (2, 2))]:
-        x = _channels_last((2, 64, 21, 18), gen)
-        out = k2.out_size(21, len(taps), pad), k2.out_size(18, len(taps), pad)
-        g = _channels_last((2, 64, *out), gen)
+    asym = (0.1, 0.2, 0.3, 0.4)
+    for shape, taps, pad in [((2, 64, 21, 18), asym, (1, 1)), ((2, 64, 21, 18), asym, (2, 1)),
+                             ((2, 64, 21, 18), (1 / 7, 2 / 7, 4 / 7), (2, 2)),
+                             ((4, 512, 16, 16), (1 / 8, 3 / 8, 3 / 8, 1 / 8), (2, 2)),
+                             ((5, 32, 33, 20), asym, (1, 1)),
+                             ((1, 64, 19, 19), (1 / 7, 2 / 7, 4 / 7), (-1, 2))]:
+        x = _channels_last(shape, gen)
+        out = k2.out_size(shape[2], len(taps), pad), k2.out_size(shape[3], len(taps), pad)
+        g = _channels_last((shape[0], shape[1], *out), gen)
         xk = x.clone().requires_grad_()
         before = k2.launches
         k2.upfirdn_blur(xk, taps, pad).backward(g)
@@ -244,6 +249,67 @@ def test_cuda_blur_backward_matches_plain_autograd():
         xp = x.clone().requires_grad_()
         k2.blur_plain(xp, taps, pad).backward(g)
         torch.testing.assert_close(xk.grad, xp.grad, **K2_TOL)
+
+
+def _offset_copy(x):
+    """x's values in channels_last storage that starts 4 bytes past a 16-byte
+    boundary: the float32 vector path needs x 16-byte aligned, so this copy
+    takes the masked path."""
+    n, c, h, w = x.shape
+    flat = torch.empty(n * h * w * c + 1, device=x.device, dtype=x.dtype)
+    out = flat[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    out.copy_(x)
+    assert out.is_contiguous(memory_format=torch.channels_last) and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 64, 512])
+def test_cuda_blur_f32_vector_path_matches_plain_version(c):
+    """The float32 vector path (C a multiple of 4, x and y 16-byte aligned)
+    against the plain version at the generators' and the discriminator's
+    widths, 3 and 4 taps, pads (1, 1), (2, 2) and a crop (-1, 2), one and
+    five images, sizes that leave partial tiles; one launch counted a call,
+    whether autograd records it or not."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for n in (1, 5):
+        for taps in ((1 / 8, 3 / 8, 3 / 8, 1 / 8), (0.1, 0.2, 0.3, 0.4), (1 / 7, 2 / 7, 4 / 7)):
+            for pad in ((1, 1), (2, 2), (-1, 2)):
+                x = _channels_last((n, c, 19, 37), gen)
+                want = k2.blur_plain(x, taps, pad)
+                before = k2.launches
+                got = k2.upfirdn_blur(x, taps, pad)
+                assert k2.launches == before + 1
+                torch.testing.assert_close(got, want, **K2_TOL)
+                recorded = k2.upfirdn_blur(x.clone().requires_grad_(), taps, pad)
+                assert k2.launches == before + 2
+                assert torch.equal(recorded.detach(), got), (n, taps, pad)
+
+
+@pytest.mark.gpu
+def test_cuda_blur_f32_vector_and_masked_paths_are_bit_identical():
+    """The same values through the vector path and through the masked path
+    (an x 4 bytes past alignment; and C = 35, not a multiple of 4, against
+    the first 35 channels of C = 36) give the same bits: both sum in the same
+    order."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for shape, taps, pad in [((2, 32, 33, 33), (1 / 8, 3 / 8, 3 / 8, 1 / 8), (1, 1)),
+                             ((3, 512, 9, 9), (1 / 8, 3 / 8, 3 / 8, 1 / 8), (2, 2)),
+                             ((1, 64, 20, 45), (0.1, 0.2, 0.3, 0.4), (-1, 2)),
+                             ((2, 36, 17, 17), (1 / 7, 2 / 7, 4 / 7), (1, 1))]:
+        x = _channels_last(shape, gen)
+        vector = k2.upfirdn_blur(x, taps, pad)
+        before = k2.launches
+        masked = k2.upfirdn_blur(_offset_copy(x), taps, pad)
+        assert k2.launches == before + 1
+        assert torch.equal(vector, masked), (shape, taps, pad)
+    x = _channels_last((2, 36, 21, 30), gen)
+    narrow = x[:, :35].contiguous(memory_format=torch.channels_last)
+    for taps, pad in [((0.1, 0.2, 0.3, 0.4), (2, 2)), ((1 / 7, 2 / 7, 4 / 7), (-1, 2))]:
+        assert torch.equal(k2.upfirdn_blur(x, taps, pad)[:, :35],
+                           k2.upfirdn_blur(narrow, taps, pad)), (taps, pad)
 
 
 @pytest.mark.gpu

@@ -45,11 +45,18 @@ def _x(shape, seed=0):
     ((2, 11, 6, 32), ASYM3, (2, 2)),
     ((1, 8, 8, 3), BINOMIAL3, (1, 1)),
     ((1, 7, 9, 96), ASYM3, (2, 1)),
+    ((2, 16, 16, 64), BINOMIAL4, (2, 2)),  # the discriminator's blur before a stride-2 conv
+    ((2, 16, 16, 64), BINOMIAL4, (1, 1)),  # and on its skip path
+    ((1, 12, 15, 64), ASYM4, (-1, 2)),     # a negative pad crops
 ])
 def test_blur_plain_matches_pallas_and_upfirdn2d(shape, taps, pad):
     x = _x(shape)
     k = jnp.asarray(taps.astype(np.float32))
-    want_pallas = pallas_blur(jnp.asarray(x), k, pad=pad, interpret=True)
+    # the TPU kernel pads and does not crop: a negative pad is a crop of x
+    lo, hi = max(0, -pad[0]), max(0, -pad[1])
+    cropped = x[:, lo:shape[1] - hi, lo:shape[2] - hi]
+    want_pallas = pallas_blur(jnp.asarray(cropped), k, pad=(max(0, pad[0]), max(0, pad[1])),
+                              interpret=True)
     want_xla = jax_upfirdn2d(jnp.asarray(x), k, up=1, down=1, pad=pad)
     tx = to_nchw(x)
     before = k2.launches
@@ -178,3 +185,20 @@ def test_make_fir_kernel_matches_jax():
 def test_blur_wrapper_rejects_empty_output():
     with pytest.raises(ValueError, match="no output"):
         k2.upfirdn_blur(torch.zeros(1, 2, 2, 2), BINOMIAL4, (0, 0))
+
+
+def test_blur_goes_through_the_function_only_when_autograd_records():
+    """A call that autograd records takes the Function (its backward is the
+    transposed blur); one it does not record (under no_grad, or an x that
+    wants no gradient) skips it and returns the same values with no graph."""
+    x = to_nchw(_x((1, 9, 9, 8), seed=6))
+    taps, pad = ASYM4.astype(np.float32), (2, 1)
+    xr = x.clone().requires_grad_()
+    recorded = k2.upfirdn_blur(xr, taps, pad)
+    assert type(recorded.grad_fn).__name__ == "_BlurBackward"
+    with torch.no_grad():
+        under_no_grad = k2.upfirdn_blur(xr, taps, pad)
+    unrecorded = k2.upfirdn_blur(x, taps, pad)
+    for y in (under_no_grad, unrecorded):
+        assert y.grad_fn is None and not y.requires_grad
+        assert torch.equal(y, recorded.detach())
