@@ -29,10 +29,10 @@ few steps through a small ids defense with frozen draws on the GPU and the
 CPU (FAB over 100 classes), and the staged AutoAttack against the
 monolithic one on the GPU; `attack_flagship` runs DeepFool and APGD-CE a
 few steps on the full ids flagship (EoT-32), through K1; `attack_remat`
-runs APGD-CE on the full gender defense and one input gradient of the full
-cars defense, both with remat, through K2. The CPU's references of
-`grad`, `attacks_parity` and `bf16_parity` run on a worker thread while the
-card runs the phases after them; `cpu_refs`, after `attack_remat`, waits
+runs APGD-CE's start (one CE gradient) on the full gender defense and
+one input gradient of the full cars defense, both with remat, through K2.
+The CPU's references of `grad`, `attacks_parity` and `bf16_parity` run on
+a worker thread while the card runs the phases after them; `cpu_refs`, after `attack_remat`, waits
 for them and makes the grad and attack checks. Then bfloat16
 (core/precision.defense_astype): `kernels_bf16` checks the kernels'
 bfloat16 builds against their bfloat16 plain versions
@@ -62,10 +62,16 @@ gender, cars, gradient, attack and bfloat16 phases);
 on the same draws) and `eval/harness.run_benchmark` under DeepFool and C&W
 at short budgets, with plots, checked as results.json (each
 attack moves an image classified right to a finite minimal L2) and PNG
-files. Phase `configs` (after `distributed`) copies six more configs onto
-the harness's files (ours_cosine_blur_ids, ours_learned_no_preprocessing_ids,
-both ablations, no_defense_ids, competitor_trades_ids), loads each through
-load_defense and holds its EoT-2 forward at batch 2 to the harness's built
+files, then under the staged AutoAttack (APGD-CE and APGD-DLR at their
+three bounds, FAB over all 100 classes in attacks/autoattack.fab_block's
+blocks) at 1 iteration a stage on the first batch, its list joining the
+others in results.json, with K1's launches and the peak (the full-length
+run at the CLI's batch on each family is
+gen_adversarial_tpu_torch/smoke_autoattack.py). Phase `configs` (after
+`distributed`) copies six more configs onto the harness's files
+(ours_cosine_blur_ids, ours_learned_no_preprocessing_ids, both ablations,
+no_defense_ids, competitor_trades_ids), loads each through load_defense
+and holds its EoT-2 forward at batch 2 to the harness's built
 modules under the config's settings on the same draws, with K1's 50
 launches on the two ours_* and none elsewhere, and times one DeepFool step
 on ours_cosine_blur_ids (the input blur and the shared-encode EoT); the
@@ -95,7 +101,10 @@ bfloat16 ND-VAE's agreement with float32, and a small A-VAE and ND-VAE on
 the card against the CPU; `train_competitors` times the A-VAE's WGAN-GP
 steps (batch 32, 64 px), the ND-VAE's cars128 recipe (batch 32) and
 TRADES on the flagship VGG11-BN (batch 64), and holds one step of each, at
-small sizes, on the card against the CPU. Then `distributed`
+small sizes, on the card against the CPU: those steps' card half of the
+A-VAE runs in phase `competitor_steps`, right before `harness`, and their
+CPU halves on the worker thread while the card runs `harness` and the
+phases after it. Then `distributed`
 (core/distributed.py, one process per GPU): two ranks started by
 `torch.distributed.run` share the card through gloo (NCCL refuses two ranks
 on one GPU) and run the classifier CLI with --distributed on a small VGG,
@@ -175,18 +184,20 @@ ATTACK_TOL = 1e-3
 ATTACK_BATCH = 4
 ATTACK_DF_ITERS = 2  # also the harness's and phase distributed's DeepFool
 FLAGSHIP_DF_ITERS = 1
-ATTACK_APGD_ITERS = 2
+ATTACK_APGD_ITERS = 1
 ATTACK_COT_CHUNK = 4
 # APGD-CE on the full gender defense and one input gradient of the full
 # cars defense, remat on (phase `attack_remat`); the EoT draws in chunks of
-# 4, so that a backward recomputes one chunk's purify at a time
-REMAT_APGD_ITERS = 1
+# 4, so that a backward recomputes one chunk's purify at a time. APGD-CE at
+# 0 iterations: its start, one CE gradient and the final forward (the
+# harness's AutoAttack and smoke_autoattack.py step it)
+REMAT_APGD_ITERS = 0
 REMAT_EOT_CHUNK = 4
 # their batches: the gender attack and CE gradients (also in bfloat16, phase
-# `attack_bf16`) on one image, the cars gradient on two; the gender CE
-# gradient under each remat_policy at EoT-REMAT_POLICY_EOT (two chunks)
+# `attack_bf16`) and the cars gradient on one image; the gender CE gradient
+# under each remat_policy at EoT-REMAT_POLICY_EOT (two chunks)
 REMAT_GENDER_BATCH = 1
-REMAT_CARS_BATCH = 2
+REMAT_CARS_BATCH = 1
 REMAT_POLICY_EOT = 8
 # the small gender defense's class gradients with remat on against off, on
 # cuDNN's deterministic algorithms: the recompute replays the same draws
@@ -209,6 +220,12 @@ HARNESS_IMAGES = 6
 HARNESS_CW_STEPS = 4
 HARNESS_MARGIN_SIGMAS = 2.0
 HARNESS_SEED = 42  # run_benchmark's seed: its draws are computed here too
+# then the staged AutoAttack through run_benchmark on the first batch of
+# HARNESS_BATCH images: every stage (APGD-CE and APGD-DLR at three bounds
+# each, FAB over all 100 classes in attacks/autoattack.fab_block's blocks) at
+# HARNESS_AA_ITERS iterations (the paper's 64 and 128; the full depth's
+# peak, which does not grow with the steps, is smoke_autoattack.py's)
+HARNESS_AA_ITERS = 1
 # phase `configs`: copies of these configs on the harness's files, each
 # loaded by load_defense and held to the same modules built directly at
 # batch CONFIGS_BATCH x EoT-CONFIGS_EOT (ours_cosine_blur_ids: the input
@@ -253,8 +270,8 @@ COMPETITOR_BATCH = {"ids": 4, "gender": 2, "cars": 4}
 # of 4 cotangents ran out of the card's 80 GB (no remat: eot_chunk would not
 # bound a backward's memory)
 COMPETITOR_DF_COT_CHUNK = {"avae": ATTACK_COT_CHUNK, "ndvae": 1}
-# the DeepFool step and the CE gradient take the first images of the ids batch
-COMPETITOR_ATTACK_BATCH = 2
+# the DeepFool step and the CE gradient take the first image of the ids batch
+COMPETITOR_ATTACK_BATCH = 1
 TRAIN_AVAE_BATCH = 32
 # the gender CE gradient under a remat_policy against policy None (phase
 # attack_remat): the same function, but cuDNN may run other algorithms,
@@ -531,7 +548,7 @@ def main() -> int:
     # a hang (a kernel that never returns) still ends the process
     faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)
 
-    from concurrent.futures import ThreadPoolExecutor
+    from concurrent.futures import ThreadPoolExecutor, wait
 
     from gen_adversarial_tpu_torch.core import cuda_build
     from gen_adversarial_tpu_torch.ops import depthwise as k1
@@ -1550,7 +1567,6 @@ def main() -> int:
     def cpu_refs_phase():
         # the worker's references (see on_cpu): wait for all, then the checks
         # of phases grad and attacks_parity against them
-        from concurrent.futures import wait
         t = time.monotonic()
         wait(submitted)
         out = {"waited_s": time.monotonic() - t, "jobs": len(submitted)}
@@ -1930,6 +1946,8 @@ def main() -> int:
 
     def harness_phase():
         # the evaluation entry points on the float32 flagship, from files
+        import importlib
+        import importlib.util
         import re
         from functools import partial
 
@@ -2056,7 +2074,6 @@ def main() -> int:
                     raise RuntimeError(f"plot {name} {i}: shape {pixels.shape}, title "
                                        f"drawn {bool(title.max())}")
                 plots[f"{name}_example={i}"] = list(pixels.shape)
-        import importlib.util
         out.update(results=written, classified_right=right, beaten=beaten, plots=plots,
                    attack_s_per_batch=seconds,
                    title_font="PIL ImageDraw" if importlib.util.find_spec("PIL")
@@ -2064,6 +2081,46 @@ def main() -> int:
                    progress_left=(results_dir / "progress_p0.json").exists(), log=logs)
         if out["progress_left"]:
             raise RuntimeError("the harness left its progress file")
+
+        # the staged AutoAttack on the first batch, every stage at
+        # HARNESS_AA_ITERS iterations (the ensemble's depths, lowered here
+        # and restored), FAB over all 100 classes; its list joins the others
+        # in results.json
+        aa_module = importlib.import_module("gen_adversarial_tpu_torch.attacks.autoattack")
+        depths = aa_module.APGD_ITERS, aa_module.FAB_ITERS
+        aa_module.APGD_ITERS = aa_module.FAB_ITERS = HARNESS_AA_ITERS
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            t = time.monotonic()
+            aa_results = run_benchmark(loaded, str(tmp / "images"), str(results_dir),
+                                       batch_size=HARNESS_BATCH, seed=HARNESS_SEED,
+                                       attack_filter="autoattack", max_images=HARNESS_BATCH,
+                                       plots=False, log_fn=logs.append)
+            torch.cuda.synchronize()
+            aa_s = time.monotonic() - t
+        finally:
+            aa_module.APGD_ITERS, aa_module.FAB_ITERS = depths
+        aa_json = ATTACK_JSON_NAMES["autoattack"]
+        both = json.loads((results_dir / "results.json").read_text())
+        values = both.get(aa_json, [])
+        out["autoattack"] = {
+            "s": aa_s, "iterations": HARNESS_AA_ITERS, "images": HARNESS_BATCH,
+            "n_classes": loaded.n_classes,
+            "fab_block": aa_module.fab_block(loaded.n_classes, HARNESS_BATCH),
+            "values": values, "clean": aa_results["Clean"],
+            "k1_launches": k1.launches, "k2_launches": k2.launches,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
+        if sorted(both) != sorted(["Clean", *keys, aa_json]) or any(
+                both[key] != written[key] for key in keys):
+            raise RuntimeError(f"results.json after AutoAttack has keys {sorted(both)}")
+        if len(values) != HARNESS_BATCH or not all(
+                math.isfinite(v) and 0.0 <= v <= 100.0 for v in values):
+            raise RuntimeError(f"results.json {aa_json}: {values}")
+        if k1.launches == 0:
+            raise RuntimeError("the harness's AutoAttack did not go through K1")
+        if (results_dir / "progress_p0.json").exists():
+            raise RuntimeError("the harness's AutoAttack left its progress file")
         shared.update(config=config, loaded=loaded, images=tmp / "images", built=built)
         return out
 
@@ -2710,7 +2767,6 @@ def main() -> int:
         # TRAIN_STEPS timed steps each, then one step of small models on the
         # card against the CPU
         from gen_adversarial_tpu_torch.core.init import flax_init_
-        from gen_adversarial_tpu_torch.models.avae.model import leaky_relu_branches
         from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
         from gen_adversarial_tpu_torch.models.ndvae.model import DefenceNVAE
         from gen_adversarial_tpu_torch.models.nvae.distributions import position_generator
@@ -2795,87 +2851,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         out["k1_launches"], out["k2_launches"] = k1.launches, k2.launches
 
-        # one step of the A-VAE (64 px, batch 1), a small ND-VAE and a small
-        # VGG on the card against the CPU (step_errors' scales). The A-VAE's
-        # Adam (eps 1e-8) and the ND-VAE's Adamax are held by the gradient
-        # their first step implies. The A-VAE steps in float32 on the card
-        # and in float64 on the CPU, whose leaky ReLUs take the card's
-        # branches (leaky_relu_branches): where a leaky ReLU's input lies
-        # within rounding of 0 the two precisions take different slopes,
-        # which put a float32 step's gradients up to 3.1e-2 (relative) from
-        # the float64 step's on the CPU, and on the float32 run's branches
-        # 2.4e-5 (tests/torch_avae_branch_sweep.py, 12 seeds).
-        # TRADES runs in float64 on both: its inner loop starts from a
-        # 0.001 x N(0, 1) perturbation, where the KL is ~1e-8, below
-        # float32's resolution of its O(1) terms, so its first direction is
-        # rounding noise in float32
-        cpu_gen = torch.Generator().manual_seed(TRAIN_SEED)
-
-        def adam_grad(p0, p, name, lr=1e-3):
-            return adamax_grad(p0, p, lr=lr * (train_avae.STYLE_LR_MUL if
-                                               name.startswith("gen.style_layers") else 1.0),
-                               eps=1e-8)
-
-        # the card's step first: the CPU's replays its draws and branches
-        trainers = {"cuda": train_avae.make_avae_trainers(64, 2, 1e-3, device=dev),
-                    "cpu": train_avae.make_avae_trainers(64, 2, 1e-3, device="cpu")}
-        trainers["cpu"].init(cpu_gen)
-        trainers["cuda"].gen.load_state_dict(trainers["cpu"].gen.state_dict())
-        trainers["cuda"].disc.load_state_dict(trainers["cpu"].disc.state_dict())
-        trainers["cpu"].gen.double()
-        trainers["cpu"].disc.double()
-        start = {k: v.clone() for k, v in torch.nn.ModuleDict(
-            {"gen": trainers["cpu"].gen, "disc": trainers["cpu"].disc}).state_dict().items()}
-        x = torch.rand(1, 3, 64, 64, generator=cpu_gen) * 2 - 1
-        card_gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
-        d_rec, g_rec = RecordingDraws(card_gen), RecordingDraws(card_gen)
-        masks, changed = [], []
-
-        def avae_one(where, model):
-            tr, on_card = trainers[where], where == "cuda"
-            real = x.to(dev) if on_card else x.double()
-            with leaky_relu_branches(None if on_card else masks) as taken:
-                wgan, gp = tr.d_step(real, d_rec if on_card else list(d_rec.record))
-                rec, kl = tr.g_step(real, g_rec if on_card else list(g_rec.record))
-            (masks if on_card else changed).extend(taken)
-            return (wgan + gp + rec + kl).item()
-
-        avae_err = step_errors(one_step({w: torch.nn.ModuleDict({"gen": tr.gen, "disc": tr.disc})
-                                         for w, tr in trainers.items()}, avae_one),
-                               start, adam_grad)
-        avae_err["branches_changed"] = int(sum(n.item() for n in changed))
-        del trainers
-
-        nd_kwargs = dict(encoding_channels=8, scales=2, groups=1, cells=2, input_dim=32)
-        cpu_nd = flax_init_(DefenceNVAE(**nd_kwargs, device="cpu"), cpu_gen)
-        start = {k: v.clone() for k, v in cpu_nd.state_dict().items()}
-        nds = {"cpu": cpu_nd, "cuda": copy.deepcopy(cpu_nd).to(dev)}
-        pair = {"x_adv": torch.rand(2, 32, 32, 3, generator=cpu_gen),
-                "x_orig": torch.rand(2, 32, 32, 3, generator=cpu_gen)}
-        nd_rec = RecordingDraws(cpu_gen)
-
-        def nd_one(where, model):
-            _, step = train_ndvae.make_ndvae_train_step(model, 1e-2, num_total_iter=100)
-            return step(pair, nd_rec if where == "cpu" else list(nd_rec.record), 5)[0].item()
-
-        nd_err = step_errors(one_step(nds, nd_one), start,
-                             lambda p0, p, name: adamax_grad(p0, p, lr=1e-2))
-        del nds, cpu_nd
-
-        cpu_vgg = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"),
-                             cpu_gen).double()
-        start = {k: v.clone() for k, v in cpu_vgg.state_dict().items()}
-        vggs = {"cpu": cpu_vgg, "cuda": copy.deepcopy(cpu_vgg).to(dev)}
-        tbatch = {"image": torch.rand(4, 16, 16, 3, generator=cpu_gen, dtype=torch.float64),
-                  "label": torch.randint(0, 10, (4,), generator=cpu_gen)}
-        t_rec = RecordingDraws(cpu_gen)
-
-        def trades_one(where, model):
-            st = train_clf.create_train_state(model, 0.01)
-            step = train_trades.make_trades_train_step(1.0, 2.0, perturb_steps=4)
-            return step(st, tbatch, t_rec if where == "cpu" else list(t_rec.record)).item()
-
-        trades_err = step_errors(one_step(vggs, trades_one), start, sgd_grad)
+        # the small steps against the CPU (phase competitor_steps): the
+        # worker's CPU steps, then the ND-VAE's and TRADES' card steps on the
+        # draws the CPU recorded
+        cpu = shared.pop("competitor_cpu").result()
+        nd_card = {"cuda": cpu["ndvae"]["init"].to(dev)}
+        _, nd_step = train_ndvae.make_ndvae_train_step(nd_card["cuda"], 1e-2, num_total_iter=100)
+        nd_err = step_errors({**one_step(nd_card, lambda where, model: nd_step(
+            cpu["ndvae"]["pair"], list(cpu["ndvae"]["record"]), 5)[0].item()),
+            "cpu": cpu["ndvae"]["result"]}, cpu["ndvae"]["start"],
+            lambda p0, p, name: adamax_grad(p0, p, lr=1e-2))
+        vgg_card = {"cuda": cpu["trades"]["init"].to(dev)}
+        trades_step = train_trades.make_trades_train_step(1.0, 2.0, perturb_steps=4)
+        trades_err = step_errors({**one_step(vgg_card, lambda where, model: trades_step(
+            train_clf.create_train_state(model, 0.01), cpu["trades"]["batch"],
+            list(cpu["trades"]["record"])).item()), "cpu": cpu["trades"]["result"]},
+            cpu["trades"]["start"], sgd_grad)
+        avae_err = cpu["avae_err"]
         out["gpu_vs_cpu"] = {"avae_f32_vs_f64": avae_err, "ndvae": nd_err,
                              "trades_float64": trades_err, "tol": TRAIN_PARITY_RTOL}
         errors = ([e for k, e in avae_err.items() if k != "branches_changed"]
@@ -2884,6 +2876,113 @@ def main() -> int:
             raise RuntimeError(f"a competitor train step on the card differs from the CPU's: "
                                f"{out['gpu_vs_cpu']}")
         return out
+
+    def competitor_steps_phase():
+        # one step of the A-VAE (64 px, batch 1), a small ND-VAE and a small
+        # VGG on the card against the CPU (step_errors' scales), checked in
+        # phase train_competitors. The CPU's steps run on the worker while
+        # the card runs the phases from harness on (the worker's oneDNN
+        # switch and the A-VAE's branch replay are process-wide: the main
+        # sequence waits for it before phase train, whose CPU steps switch
+        # oneDNN too, and competitors runs the A-VAE). The A-VAE's
+        # Adam (eps 1e-8) and the ND-VAE's Adamax are held by the gradient
+        # their first step implies. The A-VAE steps in float32 on the card
+        # (here, first) and in float64 on the CPU, whose leaky ReLUs take the
+        # card's branches (leaky_relu_branches): where a leaky ReLU's input lies
+        # within rounding of 0 the two precisions take different slopes,
+        # which put a float32 step's gradients up to 3.1e-2 (relative) from
+        # the float64 step's on the CPU, and on the float32 run's branches
+        # 2.4e-5 (tests/torch_avae_branch_sweep.py, 12 seeds).
+        # TRADES runs in float64 on both: its inner loop starts from a
+        # 0.001 x N(0, 1) perturbation, where the KL is ~1e-8, below
+        # float32's resolution of its O(1) terms, so its first direction is
+        # rounding noise in float32. The ND-VAE and TRADES steps run on the
+        # CPU first, which records their draws for the card's
+        from gen_adversarial_tpu_torch.core.init import flax_init_
+        from gen_adversarial_tpu_torch.models.avae.model import leaky_relu_branches
+        from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+        from gen_adversarial_tpu_torch.models.ndvae.model import DefenceNVAE
+        from gen_adversarial_tpu_torch.train import avae as train_avae
+        from gen_adversarial_tpu_torch.train import classifier as train_clf
+        from gen_adversarial_tpu_torch.train import ndvae as train_ndvae
+        from gen_adversarial_tpu_torch.train import trades as train_trades
+
+        card_gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        card = train_avae.make_avae_trainers(64, 2, 1e-3, device=dev)
+        card.init(card_gen)
+        both = torch.nn.ModuleDict({"gen": card.gen, "disc": card.disc})
+        start = {k: v.detach().cpu().clone() for k, v in both.state_dict().items()}
+        x = torch.rand(1, 3, 64, 64, device=dev, generator=card_gen) * 2 - 1
+        d_rec, g_rec = RecordingDraws(card_gen), RecordingDraws(card_gen)
+        masks = []
+
+        def avae_card(where, model):
+            with leaky_relu_branches() as taken:
+                wgan, gp = card.d_step(x, d_rec)
+                rec, kl = card.g_step(x, g_rec)
+            masks.extend(t.cpu() for t in taken)
+            return (wgan + gp + rec + kl).item()
+
+        avae_card_result = one_step({"cuda": both}, avae_card)["cuda"]
+        d_record = [t.cpu() for t in d_rec.record]
+        g_record = [t.cpu() for t in g_rec.record]
+        real = x.cpu()
+        del card, both, d_rec, g_rec, x
+        torch.cuda.empty_cache()
+
+        def adam_grad(p0, p, name, lr=1e-3):
+            return adamax_grad(p0, p, lr=lr * (train_avae.STYLE_LR_MUL if
+                                               name.startswith("gen.style_layers") else 1.0),
+                               eps=1e-8)
+
+        def cpu_steps():  # on the worker
+            cpu_gen = torch.Generator().manual_seed(TRAIN_SEED)
+            tr = train_avae.make_avae_trainers(64, 2, 1e-3, device="cpu")
+            both = torch.nn.ModuleDict({"gen": tr.gen, "disc": tr.disc})
+            both.load_state_dict(start)
+            both.double()
+            changed = []
+
+            def avae_cpu(where, model):
+                with leaky_relu_branches(masks) as taken:
+                    wgan, gp = tr.d_step(real.double(), list(d_record))
+                    rec, kl = tr.g_step(real.double(), list(g_record))
+                changed.extend(taken)
+                return (wgan + gp + rec + kl).item()
+
+            avae_err = step_errors({"cuda": avae_card_result,
+                                    **one_step({"cpu": both}, avae_cpu)}, start, adam_grad)
+            avae_err["branches_changed"] = int(sum(n.item() for n in changed))
+            del tr, both
+
+            nd = flax_init_(DefenceNVAE(encoding_channels=8, scales=2, groups=1, cells=2,
+                                        input_dim=32, device="cpu"), cpu_gen)
+            ndvae = {"init": copy.deepcopy(nd),
+                     "start": {k: v.clone() for k, v in nd.state_dict().items()},
+                     "pair": {"x_adv": torch.rand(2, 32, 32, 3, generator=cpu_gen),
+                              "x_orig": torch.rand(2, 32, 32, 3, generator=cpu_gen)}}
+            nd_rec = RecordingDraws(cpu_gen)
+            _, nd_step = train_ndvae.make_ndvae_train_step(nd, 1e-2, num_total_iter=100)
+            ndvae["result"] = one_step({"cpu": nd}, lambda where, model: nd_step(
+                ndvae["pair"], nd_rec, 5)[0].item())["cpu"]
+            ndvae["record"] = nd_rec.record
+
+            vgg = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"),
+                             cpu_gen).double()
+            trades = {"init": copy.deepcopy(vgg),
+                      "start": {k: v.clone() for k, v in vgg.state_dict().items()},
+                      "batch": {"image": torch.rand(4, 16, 16, 3, generator=cpu_gen,
+                                                    dtype=torch.float64),
+                                "label": torch.randint(0, 10, (4,), generator=cpu_gen)}}
+            t_rec = RecordingDraws(cpu_gen)
+            step = train_trades.make_trades_train_step(1.0, 2.0, perturb_steps=4)
+            trades["result"] = one_step({"cpu": vgg}, lambda where, model: step(
+                train_clf.create_train_state(model, 0.01), trades["batch"], t_rec).item())["cpu"]
+            trades["record"] = t_rec.record
+            return {"avae_err": avae_err, "ndvae": ndvae, "trades": trades}
+
+        shared["competitor_cpu"] = cpu_worker.submit(cpu_steps)
+        return {"avae_card_loss": avae_card_result[0]}
 
     def distributed_phase():
         # data parallel (core/distributed.py): the two gloo ranks sharing the
@@ -3101,11 +3200,16 @@ def main() -> int:
         return out
 
     try:
+        run_phase("competitor_steps", competitor_steps_phase)
         harness = run_phase("harness", harness_phase)
         run_phase("distributed", distributed_phase)
         torch.cuda.empty_cache()
         configs = run_phase("configs", configs_phase)
         alpha = run_phase("alpha_search", alpha_search_phase)
+        # the competitors' CPU steps (phase competitor_steps) switch oneDNN
+        # off and replay the A-VAE's branches process-wide: done before
+        # train's CPU steps and the competitors' A-VAE
+        wait([shared["competitor_cpu"]])
         train = run_phase("train", train_phase)
         torch.cuda.empty_cache()
         competitors = run_phase("competitors", competitors_phase)
@@ -3186,6 +3290,7 @@ def main() -> int:
               attack_launches={"attacks_parity": attack_parity["k1_launches"],
                                "attack_flagship": attack_flag["k1_launches"],
                                "harness": harness["k1_launches"],
+                               "harness_autoattack": harness["autoattack"]["k1_launches"],
                                "configs": sum(configs[c]["k1_launches"] for c in PHASE_CONFIGS)
                                + configs["deepfool_step"]["k1_launches"],
                                "alpha_search": alpha["k1_launches"],

@@ -9,7 +9,15 @@ draws from a source of its own (`split_draws`), so a stage's result does not
 depend on which stages ran before it. `autoattack` runs every stage and
 gates the merge per sample; `make_staged_autoattack` skips a stage whose
 gate is all False (one boolean read from the device per stage) and gives
-the same result."""
+the same result.
+
+FAB's class Jacobian differentiates one forward against every class's
+one-hot cotangent (attacks/utils.class_grads). The JAX package does that in
+one block unless GAT_COT_CHUNK sets one; the port, where no block is given,
+takes blocks of `fab_block(n_classes, batch)` cotangents, which give the same
+result: all 100 ids classes in one block at the CLI's batch of 8 and EoT-32
+would hold 100 x the backward of 256 purified images and do not fit one
+80 GB card."""
 
 from __future__ import annotations
 
@@ -23,6 +31,11 @@ from gen_adversarial_tpu_torch.models.nvae.distributions import Draws, as_draws
 
 N_STAGES = 7  # 3 APGD-CE, 3 APGD-DLR, FAB
 APGD_ITERS, APGD_RHO = 64, 0.75
+FAB_ITERS = 128
+# FAB's cotangents x images a backward where no block is given: the flagship
+# (ids, EoT-32) at batch 8 peaks at 66.6 GiB in blocks of 1 and 70.9 GiB in
+# blocks of 2, and runs out of the H100's 79.2 GiB in blocks of 4
+FAB_COT_SAMPLES = 16
 CE_BOUNDS, DLR_BOUNDS = (0.5, 1.0, 4.0), (0.5, 2.0, 4.0)
 
 
@@ -40,6 +53,14 @@ def split_draws(draws: Draws, n: int) -> list[Draws]:
                             "little") >> 1 for i in range(n)]
     torch.empty(n, device=gen.device).normal_(generator=gen)
     return [Draws(torch.Generator(device=gen.device).manual_seed(s)) for s in seeds]
+
+
+def fab_block(n_classes: int, batch: int) -> int | None:
+    """FAB's cotangent block where none is given: FAB_COT_SAMPLES // batch
+    cotangents (at least 1), or None (one block, as the JAX package's
+    default) where that covers every class."""
+    block = max(1, FAB_COT_SAMPLES // batch)
+    return None if block >= n_classes else block
 
 
 def update_result(res0, res1, gate=None):
@@ -72,7 +93,9 @@ def _run(net, images, labels, generator, n_classes, cotangent_chunk, skip_solved
     res = chain(True, 0, CE_BOUNDS)
     if n_classes > 3:
         res = update_result(res, chain(False, 3, DLR_BOUNDS))
-    return update_result(res, fab_attack(net, images, labels, stages[6], n_iter=128,
+    if cotangent_chunk is None:
+        cotangent_chunk = fab_block(n_classes, images.shape[0])
+    return update_result(res, fab_attack(net, images, labels, stages[6], n_iter=FAB_ITERS,
                                          alpha_max=0.1, eta=1.05, beta=0.9,
                                          cotangent_chunk=cotangent_chunk))
 
@@ -80,8 +103,8 @@ def _run(net, images, labels, generator, n_classes, cotangent_chunk, skip_solved
 def autoattack(net, images: torch.Tensor, labels: torch.Tensor, generator, n_classes: int,
                cotangent_chunk: int | None = None):
     """Every stage runs; the escalation is a per-sample gate at the merge.
-    cotangent_chunk is FAB's (utils.class_grads). Returns (success, bound,
-    adv)."""
+    cotangent_chunk is FAB's (utils.class_grads; None: `fab_block`).
+    Returns (success, bound, adv)."""
     return _run(net, images, labels, generator, n_classes, cotangent_chunk, False)
 
 

@@ -151,7 +151,8 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
     the attacks' math stays float32. The competitors (A-VAE, ND-VAE) run at
     the caller's eot_steps, without remat. As in the JAX package, the
     environment's GAT_DF_COT_CHUNK sets DeepFool's cotangent_chunk and
-    GAT_COT_CHUNK AutoAttack's FAB's (0 or unset: None); under a remat_policy
+    GAT_COT_CHUNK AutoAttack's FAB's (0 or unset: None, which for FAB is
+    attacks/autoattack.fab_block's block); under a remat_policy
     the forwards that are differentiated in blocks recompute their purifier
     whole (defenses/base.py)."""
     device = resolve_device(device, "load_defense")

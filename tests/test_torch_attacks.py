@@ -5,7 +5,8 @@ small conv classifier (chunked and unchunked, and the torch.autograd route
 against torch.func) and through K2's batching rule, every attack against its JAX twin on the deterministic
 linear net of tests/test_attack_parity.py (NHWC flattened in NCHW order),
 with the same numpy noise injected on both sides where an attack draws, the
-staged AutoAttack against the monolithic one, and the attack suites."""
+staged AutoAttack against the monolithic one, the attack suites, and FAB in
+the ensemble's default blocks (autoattack.fab_block) against one block."""
 
 import dataclasses
 import importlib
@@ -29,8 +30,11 @@ from gen_adversarial_tpu_torch import attacks
 from gen_adversarial_tpu_torch.attacks.apgd import _check_schedule, dlr_loss
 from gen_adversarial_tpu_torch.core.config import ATTACK_SUITES
 from gen_adversarial_tpu_torch.defenses.base import ClassifierDefense, make_classifier_apply
+from gen_adversarial_tpu_torch.defenses.eot import eot_wrap
 from gen_adversarial_tpu_torch.eval.factory import build_attacks
+from gen_adversarial_tpu_torch.flagship import flagship
 from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+from gen_adversarial_tpu_torch.models.nvae.model import NVAEConfig
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
 from tests.torch_port_helpers import (  # noqa: F401 (one_torch_thread: a fixture)
     load_port, one_torch_thread, random_variables)
@@ -403,3 +407,45 @@ def test_attack_suites_and_build_attacks_match_jax():
             c=s.cw_c, kappa=s.cw_kappa, steps=s.cw_steps, lr=s.cw_lr,
             n_restarts=s.cw_n_restarts, early_stopping_steps=s.cw_early_stopping_steps)
         assert suite["autoattack"].keywords == dict(n_classes=n_classes, cotangent_chunk=5)
+
+
+def test_fab_default_block_equals_one_block(monkeypatch):
+    """FAB on a small ids defense over 100 classes (a 32-px NVAE of 2 x 2
+    groups, a tiny VGG, EoT-2), 2 images, 2 steps: with the ensemble's
+    default block (autoattack.fab_block: 8 cotangents a backward at a batch
+    of 2) as with one block of all 100 (cotangent_chunk None), on the same
+    draws. FAB finds no adversary in 2 steps here, so its iterates are held
+    too: each step's point and class gradients, recorded at
+    utils.class_grads, within CHUNK_RTOL."""
+    block = autoattack_module.fab_block(100, 2)
+    assert block == 8
+    cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2, num_groups_per_scale=2,
+                     is_adaptive=False, num_cells_per_group=1, num_latent_per_group=4,
+                     num_mixtures=3)
+    plan = (4, "M", 8, "M", 8, 8, "M", 8, 8, "M", 8, 8, "M")
+    net = eot_wrap(flagship(device="cpu", cfg=cfg, vgg_plan=plan, n_classes=100, seed=1), 2)
+    x = torch.tensor(np.random.RandomState(4).rand(2, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        y = net(x, torch.Generator().manual_seed(2)).argmax(1)
+    fab = importlib.import_module("gen_adversarial_tpu_torch.attacks.fab")
+    class_grads, steps = fab.class_grads, []
+
+    def recorded(net, x_i, draws, **kw):
+        logits, grads = class_grads(net, x_i, draws, **kw)
+        steps[-1].append((x_i, logits, grads))
+        return logits, grads
+
+    monkeypatch.setattr(fab, "class_grads", recorded)
+    runs = []
+    for chunk in (block, None):
+        steps.append([])
+        runs.append(autoattack_module.fab_attack(net, x, y, torch.Generator().manual_seed(5),
+                                                 n_iter=2, cotangent_chunk=chunk))
+    (got_s, got_b, got_a), (want_s, want_b, want_a) = runs
+    assert torch.equal(got_s, want_s) and torch.equal(got_b, want_b)
+    torch.testing.assert_close(got_a, want_a, rtol=0, atol=CHUNK_RTOL)
+    assert len(steps[0]) == len(steps[1]) == 2
+    assert (steps[0][1][0] - x).abs().max() > 0.01  # the second step's point moved
+    for got, want in zip(steps[0], steps[1]):
+        for g, w in zip(got, want):
+            assert (g - w).abs().max() <= CHUNK_RTOL * w.abs().max()

@@ -212,7 +212,9 @@ def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeyp
     block and GAT_COT_CHUNK FAB's (0 or unset: None), each set alone and
     both: the attacks' keywords, and the chunk FAB is called with inside the
     monolithic AutoAttack and inside the staged one that run_benchmark builds
-    (APGD and FAB replaced by recorders; C&W takes no chunk)."""
+    (APGD and FAB replaced by recorders; C&W takes no chunk): GAT_COT_CHUNK's
+    where it is set, else the ensemble's own `fab_block` (8 of the 100
+    classes at a batch of 2)."""
     for name in ("GAT_DF_COT_CHUNK", "GAT_COT_CHUNK"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -250,7 +252,8 @@ def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeyp
                   (_images(i)[0].clip(0, 1) * 255).round().astype(np.uint8))
     run_benchmark(loaded, str(tmp_path / "images"), str(tmp_path / "results"), batch_size=2,
                   attack_filter="autoattack", plots=False, log_fn=lambda msg: None)
-    assert seen == [fab_chunk, fab_chunk]
+    want = fab_chunk or autoattack_module.fab_block(100, 2)
+    assert want == (fab_chunk or 8) and seen == [want, want]
 
 
 @pytest.mark.parametrize("name", ["competitor_avae_ids", "competitor_ndvae_ids"])

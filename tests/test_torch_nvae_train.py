@@ -10,6 +10,8 @@ JAX's own: each key's normals and uniforms are computed with
 jax.random.normal / uniform as the JAX code splits them, and replayed into
 the port through a `Draws` list (NHWC -> NCHW where the port is NCHW)."""
 
+import copy
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,8 +27,10 @@ from gen_adversarial_tpu_torch.models.nvae import cells as tcells
 from gen_adversarial_tpu_torch.models.nvae import distributions as tdist
 from gen_adversarial_tpu_torch.models.nvae.model import NVAE, NVAEConfig, eps_shapes
 from gen_adversarial_tpu_torch.train import nvae as ttrain
+from gen_adversarial_tpu_torch.models import batchnorm
 from tests.torch_port_helpers import (  # noqa: F401 (fixtures)
-    load_port, no_onednn, one_torch_thread, random_variables, rel_err)
+    assert_bn_buffers_close, bn_buffer_errors, load_port, no_onednn, nvae_train_step,
+    one_torch_thread, random_variables, rel_err, small_nvae_train_case)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread", "no_onednn")
 
@@ -404,3 +408,47 @@ def test_kl_coeff_and_balanced_kl_match_jax(step):
     got.backward()
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def small_step():
+    """The CPU side of tests/test_torch_gpu.py's small NVAE step: the model
+    before its step, the images, the draws and the buffers after it."""
+    _, model, x, draws = small_nvae_train_case(torch.Generator().manual_seed(3))
+    before = copy.deepcopy(model)
+    return before, x, draws, nvae_train_step(model, x, draws)[2]
+
+
+def _torch_bn_forward(self, x):
+    """torch's own BatchNorm forward: in training it stores the unbiased
+    variance var * n / (n - 1) (models/batchnorm.py's docstring)."""
+    return super(batchnorm._FlaxTraining, self).forward(x)
+
+
+@pytest.mark.parametrize("case", ["draws_1e-6", "unbiased_var", "mean_shift_1e-3_std"])
+def test_bn_buffer_measure(case, small_step, monkeypatch):
+    """The measure that the GPU train-step test holds the running statistics
+    to (torch_port_helpers.bn_buffer_errors at 1e-4): two CPU steps whose
+    draws differ by 1e-6 relative pass it (their running means differ by
+    about their own size where a BN normalises an input already
+    batch-normalised, so a measure relative to each buffer's maximum reads
+    rounding noise there); torch's unbiased running variance fails it on a
+    running_var; a running mean moved by 1e-3 of its BN's std fails it."""
+    before, x, draws, want = small_step
+    if case == "draws_1e-6":
+        got = nvae_train_step(copy.deepcopy(before), x, [d * (1 + 1e-6) for d in draws])[2]
+        assert_bn_buffers_close(got, want, 1e-4)
+        return
+    if case == "unbiased_var":
+        monkeypatch.setattr(batchnorm._FlaxTraining, "forward", _torch_bn_forward)
+        got = nvae_train_step(copy.deepcopy(before), x, draws)[2]
+        errors = bn_buffer_errors(got, want)
+        assert max(e for n, e in errors.items() if n.endswith("running_mean")) <= 1e-4
+        with pytest.raises(AssertionError, match="running_var"):
+            assert_bn_buffers_close(got, want, 1e-4)
+        return
+    name = next(n for n in want if n.endswith("running_mean"))
+    got = dict(want)
+    got[name] = want[name] + 1e-3 * want[name[:-len("mean")] + "var"].sqrt()
+    with pytest.raises(AssertionError, match=name):
+        assert_bn_buffers_close(got, want, 1e-4)

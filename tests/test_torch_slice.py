@@ -287,7 +287,7 @@ SLICE_MODULES = [  # the modules of each port slice, which the checks below cove
     "core/stylegan_convert.py", "core/avae_convert.py", "core/ndvae_convert.py",
     "cli/convert_checkpoints.py",
     "core/distributed.py", "models/stylegan2/discriminator.py",
-    "smoke_all_configs.py",
+    "smoke_all_configs.py", "smoke_autoattack.py", "attack_memory.py",
 ]
 
 

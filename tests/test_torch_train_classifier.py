@@ -7,6 +7,8 @@ statistics), eval_step, fit's resume and its ragged validation tail, and
 convert_torchvision_backbone on the torchvision-shaped references of
 tests/torch_refs.py."""
 
+import copy
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,8 @@ from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset
 from gen_adversarial_tpu_torch.models.classifiers import ResNetBackbone, VGG11BN
 from gen_adversarial_tpu_torch.train import augment as taug
 from tests.torch_port_helpers import (  # noqa: F401 (fixtures)
-    TINY_PLAN, load_port, no_onednn, one_torch_thread, random_variables, tiny_world)
+    TINY_PLAN, assert_step_close, load_port, no_onednn, one_torch_thread, random_variables,
+    small_nvae_train_case, small_vgg_train_case, tiny_world, vgg_train_step)
 from tests.torch_refs import TVResNet, TVVgg, numpy_state_dict
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread", "no_onednn")
@@ -239,3 +242,27 @@ def test_convert_torchvision_backbone_matches_jax(model_type):
         jax.tree.map(np.asarray, dict(want)))
     _assert_trees_close(got, want, "converted", rtol=0, atol=0)
     from_jax_variables(got, tmodel)
+
+
+def test_step_measure_reads_the_steps_units():
+    """The measure the GPU train-step test holds its small VGG's step to
+    (torch_port_helpers.assert_step_close at 1e-4): the float32 step passes
+    it against the float64 step from the same state, though the
+    convolutions' biases (their gradients rounding noise ahead of training
+    BatchNorms) differ by about their own size; a weight moved by 1e-3 of
+    the largest step fails it."""
+    gen = torch.Generator().manual_seed(3)
+    small_nvae_train_case(gen)  # the GPU test draws its VGG after its NVAE
+    model, batch, augment = small_vgg_train_case(gen)
+    before = {k: v.clone() for k, v in model.state_dict().items() if v.is_floating_point()}
+    params = {n for n, _ in model.named_parameters()}
+    want = vgg_train_step(copy.deepcopy(model), batch, augment)[1]
+    got = vgg_train_step(copy.deepcopy(model).double(), batch, augment)[1]
+    assert got["conv0.bias"].dtype == torch.float64
+    assert_step_close(got, want, before, params, 1e-4)
+    bias = (got["conv0.bias"] - want["conv0.bias"]).abs().max() / want["conv0.bias"].abs().max()
+    assert bias > 1e-2
+    step = max((want[n] - before[n]).abs().max().item() for n in params)
+    moved = dict(want, **{"conv1.weight": want["conv1.weight"] + 1e-3 * step})
+    with pytest.raises(AssertionError, match="conv1.weight"):
+        assert_step_close(moved, want, before, params, 1e-4)

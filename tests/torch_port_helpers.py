@@ -1,10 +1,12 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: random flax variables from a numpy seed, their transfer into a port
-module, NHWC/NCHW moves, and the relative error the gradient tests bound."""
+module, NHWC/NCHW moves, and the relative error the gradient tests bound.
+JAX is imported inside the helpers that use it, so the tests that need a
+card (tests/test_torch_gpu.py, run where JAX is not installed) can import
+this module too."""
 
 import re
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,8 @@ def random_variables(variables, seed: int):
     N(0, 100^2); the constant input and the fixed `noise_<i>` maps N(0, 1).
     The A-VAE's equalized weights, `style_layers_<i>` included, are N(0, 1)
     as flax initializes them."""
+    import jax
+
     rng = np.random.RandomState(seed)
     flat, treedef = jax.tree_util.tree_flatten_with_path(variables)
     out = []
@@ -58,6 +62,8 @@ def random_variables(variables, seed: int):
 
 def load_port(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Port module with the flax variables loaded, in eval mode."""
+    import jax
+
     return from_jax_variables(jax.tree.map(np.asarray, variables), module).eval()
 
 
@@ -99,6 +105,8 @@ def keyed_normal_calls(pairs):
     """keyed_normal_call over several (key, per_draw) pairs in one table: a
     function jitted under the returned jax_call finds the draws of every
     key, so one trace serves calls with any of them."""
+    import jax
+
     entries = []
     for key, per_draw in pairs:
         for d, kd in enumerate(jax.random.split(key, len(per_draw))):
@@ -116,6 +124,8 @@ def keyed_normal_table(entries):
     the value of `entries` ((key, value) pairs; a None value is skipped)
     whose key is k, looked up among the values of that shape (see
     keyed_normal_call)."""
+    import jax
+
     import jax.numpy as jnp
 
     tables = {}
@@ -155,8 +165,6 @@ def rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-
-
 def assert_within_bf16_gap(port16, jax16, jax32, what: str) -> tuple[float, float]:
     """The port's bfloat16 result against JAX's float32 one, within
     BF16_GAP_FACTOR x JAX bfloat16's own distance from it; returns (the
@@ -174,6 +182,7 @@ def bf16_logits(pair, x):
     builder: pair(bf16) -> (jax_net(defense, x), the JAX defense, jax_call,
     port_net(x)), both defenses cast by their package's defense_astype when
     bf16 is true; the JAX side jitted with the defense as an argument."""
+    import jax
     import jax.numpy as jnp
 
     want = {}
@@ -210,6 +219,7 @@ def tiny_world(tmp_path, n_per_class: int = 6):
     and 1, almost alike: the images are classified as 0 or 1, some right,
     and DeepFool crosses the boundary between the two in a few steps.
     Returns (images folder, checkpoint path)."""
+    import jax
     import jax.numpy as jnp
     from PIL import Image
 
@@ -271,3 +281,115 @@ def grads_as_jax(module: torch.nn.Module) -> dict:
         for p, g in zip(twin.parameters(), module.parameters()):
             p.copy_(g.grad if g.grad is not None else torch.zeros_like(g))
     return to_jax_variables(twin)["params"]
+
+
+# the small NVAE of the train-step tests on the card and on the CPU
+SMALL_TRAIN_NVAE = dict(resolution=16, initial_channels=8, num_scales=2, num_groups_per_scale=2,
+                        is_adaptive=False, num_cells_per_group=1, num_latent_per_group=4,
+                        num_mixtures=3)
+
+
+def small_nvae_train_case(gen: torch.Generator):
+    """(cfg, model, x, draws) of one make_nvae_train_step step of the small
+    NVAE: flax's init, a batch of 2 images and the step's draws (the input
+    noise, then the latents), all from `gen`, on the CPU."""
+    from gen_adversarial_tpu_torch.core.init import flax_init_
+    from gen_adversarial_tpu_torch.models.nvae.model import NVAE, NVAEConfig, eps_shapes
+
+    cfg = NVAEConfig(**SMALL_TRAIN_NVAE)
+    model = flax_init_(NVAE(cfg, device="cpu"), gen)
+    x = torch.rand((2, 16, 16, 3), generator=gen)
+    draws = [torch.randn((2, 16, 16, 3), generator=gen)]
+    draws += [torch.randn(s, generator=gen) for s in eps_shapes(cfg, 2)]
+    return cfg, model, x, draws
+
+
+def nvae_train_step(model: torch.nn.Module, x: torch.Tensor, draws) -> tuple:
+    """One make_nvae_train_step step (lr 6e-3, 100 iterations in all, input
+    noise 0.03, global step 5) of `model` in place, on its device, oneDNN
+    off: (loss, name -> gradient, name -> floating-point buffer)."""
+    from gen_adversarial_tpu_torch.train import nvae as train_nvae
+
+    device = next(model.parameters()).device
+    _, step = train_nvae.make_nvae_train_step(model, 6e-3, 100, input_noise=0.03)
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss = step({"image": x.to(device)}, [d.to(device) for d in draws], 5)[0].item()
+    return (loss, {n: p.grad for n, p in model.named_parameters()},
+            {n: b for n, b in model.named_buffers() if b.is_floating_point()})
+
+
+def bn_buffer_errors(got: dict, want: dict) -> dict:
+    """Each floating-point buffer's error after a training step, in the units
+    of what it normalises: a BatchNorm's `running_mean` by max |got - want|
+    / sqrt(want's `running_var`) over its channels (the units of the
+    activations it centres: a mean that is rounding noise next to its
+    activations' spread, as after a BN that follows another BN, moves by
+    its own size under a change of 1e-6 in the draws), every other buffer
+    (`running_var` among them) by max |got - want| over max |want|.
+    got / want: name -> tensor; returns name -> error."""
+    errors = {}
+    for name, w in want.items():
+        w = w.double()
+        diff = (got[name].double().cpu() - w).abs()
+        if name.endswith("running_mean"):
+            var = want[name[:-len("mean")] + "var"].double()
+            errors[name] = (diff / var.clamp(min=1e-30).sqrt()).max().item()
+        else:
+            errors[name] = (diff.max() / w.abs().max().clamp(min=1e-12)).item()
+    return errors
+
+
+def assert_bn_buffers_close(got: dict, want: dict, tol: float = 1e-4) -> None:
+    """Every buffer within `tol` by bn_buffer_errors; the message names the
+    worst one."""
+    errors = bn_buffer_errors(got, want)
+    worst = max(errors, key=errors.get)
+    assert errors[worst] <= tol, f"{worst}: {errors[worst]:.3e} > {tol:.0e}"
+
+
+def small_vgg_train_case(gen: torch.Generator):
+    """(model, batch, augment) of one train_step of a small VGG11-BN over 10
+    classes: flax's init, 4 images of 16 px and their labels, and the
+    training augmentation with its parameters drawn once, all from `gen`,
+    on the CPU."""
+    from gen_adversarial_tpu_torch.core.init import flax_init_
+    from gen_adversarial_tpu_torch.models.classifiers import VGG11BN
+    from gen_adversarial_tpu_torch.train import augment
+
+    model = flax_init_(VGG11BN(10, plan=(8, "M", 16, "M", 16, "M"), device="cpu"), gen)
+    batch = {"image": torch.rand((4, 16, 16, 3), generator=gen),
+             "label": torch.randint(0, 10, (4,), generator=gen)}
+    params = augment.draw_augment(gen, 4)
+
+    def fixed(images, generator):
+        out = augment.apply_augment(images, {k: v.to(images.device) for k, v in params.items()})
+        return (out - 0.5) / 0.5
+
+    return model, batch, fixed
+
+
+def vgg_train_step(model: torch.nn.Module, batch: dict, augment) -> tuple:
+    """One train_step (SGD, lr 0.01) of `model` in place, on its device,
+    oneDNN off: (loss, name -> floating-point state)."""
+    from gen_adversarial_tpu_torch.train import classifier as train_clf
+
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss = train_clf.train_step(train_clf.create_train_state(model, 0.01), batch, None,
+                                    augment=augment).item()
+    return loss, {k: v for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def assert_step_close(got: dict, want: dict, before: dict, params, tol: float = 1e-4) -> None:
+    """The state after one optimizer step from `before` on two devices: each
+    parameter (the names in `params`) within `tol` x the largest change of
+    any parameter in `want`'s step (the step's units, as the gradients are
+    held against the largest gradient: a convolution's bias ahead of a
+    training BatchNorm has a gradient of rounding noise, so after the step
+    it is rounding noise too, and a measure relative to its own size reads
+    it as 1), every other entry by bn_buffer_errors."""
+    step = max((want[n] - before[n]).abs().max().item() for n in params)
+    worst = max(params, key=lambda n: (got[n].double().cpu() - want[n]).abs().max().item())
+    err = (got[worst].double().cpu() - want[worst]).abs().max().item()
+    assert err <= tol * step, f"{worst}: {err:.3e} > {tol:.0e} x the largest step {step:.3e}"
+    assert_bn_buffers_close({n: got[n] for n in want if n not in params},
+                            {n: want[n] for n in want if n not in params}, tol)
