@@ -63,11 +63,15 @@ on the same draws) and `eval/harness.run_benchmark` under DeepFool and C&W
 at short budgets, with plots, checked as results.json (each
 attack moves an image classified right to a finite minimal L2) and PNG
 files, then under the staged AutoAttack (APGD-CE and APGD-DLR at their
-three bounds, FAB over all 100 classes in attacks/autoattack.fab_block's
+three bounds, FAB over all 100 classes in attacks/utils.class_block's
 blocks) at 1 iteration a stage on the first batch, its list joining the
 others in results.json, with K1's launches and the peak (the full-length
 run at the CLI's batch on each family is
-gen_adversarial_tpu_torch/smoke_autoattack.py). Phase `configs` (after
+gen_adversarial_tpu_torch/smoke_autoattack.py; the CLIs at their defaults,
+gen_adversarial_tpu_torch/smoke_cli_defaults.py). The phase line gives the
+EoT chunk the CLIs would take at the harness's batch and the class blocks
+DeepFool and FAB took where none was given (4 of DeepFool's 8 classes and
+of FAB's 100 at batch 4). Phase `configs` (after
 `distributed`) copies six more configs onto the harness's files
 (ours_cosine_blur_ids, ours_learned_no_preprocessing_ids, both ablations,
 no_defense_ids, competitor_trades_ids), loads each through load_defense
@@ -211,7 +215,8 @@ BF16_KERNEL_RTOL = 2.0 ** -7
 BF16_SLOW_REPS = 1
 # phase `harness`: the flagship's results.json over 6 images at batch 4 (one
 # full batch, one ragged batch of 2), DeepFool at ATTACK_DF_ITERS steps with
-# its cotangents in blocks of ATTACK_COT_CHUNK, C&W at HARNESS_CW_STEPS steps
+# its cotangents in its default blocks (attacks/utils.class_block: 4 at
+# batch 4, ATTACK_COT_CHUNK), C&W at HARNESS_CW_STEPS steps
 # and one restart. The random head's class-0 bias puts image 0 on class 0 by
 # HARNESS_MARGIN_SIGMAS x the draw-to-draw std of its margin, so the attacks
 # have a correctly classified image they can move at these budgets
@@ -222,7 +227,7 @@ HARNESS_MARGIN_SIGMAS = 2.0
 HARNESS_SEED = 42  # run_benchmark's seed: its draws are computed here too
 # then the staged AutoAttack through run_benchmark on the first batch of
 # HARNESS_BATCH images: every stage (APGD-CE and APGD-DLR at three bounds
-# each, FAB over all 100 classes in attacks/autoattack.fab_block's blocks) at
+# each, FAB over all 100 classes in attacks/utils.class_block's blocks) at
 # HARNESS_AA_ITERS iterations (the paper's 64 and 128; the full depth's
 # peak, which does not grow with the steps, is smoke_autoattack.py's)
 HARNESS_AA_ITERS = 1
@@ -1951,9 +1956,10 @@ def main() -> int:
         import re
         from functools import partial
 
+        from gen_adversarial_tpu_torch.attacks.utils import class_block
         from gen_adversarial_tpu_torch.core.checkpoint import load_variables
         from gen_adversarial_tpu_torch.data import png
-        from gen_adversarial_tpu_torch.eval.factory import load_defense
+        from gen_adversarial_tpu_torch.eval.factory import default_eot_chunk, load_defense
         from gen_adversarial_tpu_torch.eval.harness import (
             ATTACK_JSON_NAMES, TITLE_STRIP, run_benchmark)
 
@@ -2023,8 +2029,23 @@ def main() -> int:
         s = ATTACK_SUITES["ids"]
         loaded.attacks["deepfool"] = timed_attack("deepfool", partial(
             attacks.deepfool_attack, num_classes=s.deepfool_num_classes,
-            overshoot=s.deepfool_overshoot, max_iter=ATTACK_DF_ITERS,
-            cotangent_chunk=ATTACK_COT_CHUNK))
+            overshoot=s.deepfool_overshoot, max_iter=ATTACK_DF_ITERS))
+        # the blocks DeepFool's and FAB's class Jacobians take where none is
+        # given (GAT_DF_COT_CHUNK and GAT_COT_CHUNK unset), read at their
+        # class_grads calls
+        blocks = {"deepfool": [], "fab": []}
+        block_modules = {name: importlib.import_module(f"gen_adversarial_tpu_torch.attacks.{name}")
+                         for name in blocks}
+        real_class_grads = {name: m.class_grads for name, m in block_modules.items()}
+
+        def block_recorder(name):
+            def recorded(*args, **kw):
+                blocks[name].append(kw.get("cotangent_chunk"))
+                return real_class_grads[name](*args, **kw)
+            return recorded
+
+        for name, m in block_modules.items():
+            m.class_grads = block_recorder(name)
         loaded.attacks["c&w"] = timed_attack("c&w", partial(
             attacks.cw_attack, c=s.cw_c, kappa=s.cw_kappa, steps=HARNESS_CW_STEPS,
             lr=s.cw_lr, n_restarts=1, early_stopping_steps=s.cw_early_stopping_steps))
@@ -2101,13 +2122,15 @@ def main() -> int:
             aa_s = time.monotonic() - t
         finally:
             aa_module.APGD_ITERS, aa_module.FAB_ITERS = depths
+            for name, m in block_modules.items():
+                m.class_grads = real_class_grads[name]
         aa_json = ATTACK_JSON_NAMES["autoattack"]
         both = json.loads((results_dir / "results.json").read_text())
         values = both.get(aa_json, [])
         out["autoattack"] = {
             "s": aa_s, "iterations": HARNESS_AA_ITERS, "images": HARNESS_BATCH,
             "n_classes": loaded.n_classes,
-            "fab_block": aa_module.fab_block(loaded.n_classes, HARNESS_BATCH),
+            "fab_block": class_block(loaded.n_classes, HARNESS_BATCH),
             "values": values, "clean": aa_results["Clean"],
             "k1_launches": k1.launches, "k2_launches": k2.launches,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30}
@@ -2119,6 +2142,18 @@ def main() -> int:
             raise RuntimeError(f"results.json {aa_json}: {values}")
         if k1.launches == 0:
             raise RuntimeError("the harness's AutoAttack did not go through K1")
+        # what the defaults gave at the harness's batch: the CLIs' EoT chunk
+        # (none for ids) and the class blocks the attacks took
+        out["defaults"] = {
+            "cli_eot_chunk": default_eot_chunk("ids", "ours", HARNESS_BATCH, EOT_STEPS),
+            "eot_chunk": loaded.eot_chunk,
+            "deepfool_blocks": sorted(set(blocks["deepfool"]), key=str),
+            "fab_blocks": sorted(set(blocks["fab"]), key=str)}
+        want = {"deepfool": [class_block(s.deepfool_num_classes, HARNESS_BATCH)],
+                "fab": [class_block(loaded.n_classes, HARNESS_BATCH)]}
+        if any(out["defaults"][f"{name}_blocks"] != want[name] for name in want) \
+                or loaded.eot_chunk != out["defaults"]["cli_eot_chunk"]:
+            raise RuntimeError(f"the defaults gave {out['defaults']}, expected blocks {want}")
         if (results_dir / "progress_p0.json").exists():
             raise RuntimeError("the harness's AutoAttack left its progress file")
         shared.update(config=config, loaded=loaded, images=tmp / "images", built=built)

@@ -12,6 +12,21 @@ from torch.func import vmap
 
 from gen_adversarial_tpu_torch.defenses.base import several_backwards
 
+# class cotangents x images a backward where no block is given. At the CLI's
+# batch of 8 and EoT-32 on the flagship (ids), blocks of 2 peak at 70.9 GiB
+# of an H100's 79.2 and blocks of 4 run out, for DeepFool's 8 classes and
+# FAB's 100 alike (NVIDIA H100 80GB HBM3, attack_memory.py)
+COT_SAMPLES = 16
+
+
+def class_block(n_classes: int, batch: int) -> int | None:
+    """The class-Jacobian block of DeepFool and FAB where none is given:
+    COT_SAMPLES // batch cotangents (at least 1), or None (one block, the
+    JAX package's default) where that covers every class. A block changes
+    the live memory of class_grads' backward, not its result."""
+    block = max(1, COT_SAMPLES // batch)
+    return None if block >= n_classes else block
+
 
 def class_grads(net, x: torch.Tensor, draws, class_idx: torch.Tensor | None = None,
                 cotangent_chunk: int | None = None):

@@ -14,7 +14,11 @@ Usage:
 
 The config's checkpoint paths point at flax msgpack files (written by either
 package's `save_variables`); the image sets are folders of class folders.
-It runs on one CUDA device unless --device cpu is given. The results folder
+It runs on one CUDA device unless --device cpu is given. Every mode wraps
+EoT with --eot-chunk, or without it with the config's family default at
+--batch-size (eval/factory.default_eot_chunk); the JAX CLI's make-adv drops
+the flag and runs unchunked, which gives the same adversaries on the same
+draws but does not fit one 80 GB card for gender. The results folder
 holds alphas.npy, accuracies.npy and, while a search runs, its progress
 marker, in the JAX package's format: either package resumes the other's.
 """
@@ -26,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-from gen_adversarial_tpu_torch.core.config import N_LATENTS
+from gen_adversarial_tpu_torch.core.config import N_LATENTS, defense_type_of, experiment_of
 
 # FGSM bounds per experiment (create_adversarial_dataset.py; 4/2/4)
 FGSM_BOUND = {"gender": 4.0, "ids": 2.0, "cars": 4.0}
@@ -48,7 +52,7 @@ def main(argv: list[str] | None = None):
     p.add_argument("--eot-steps", type=int, default=32)
     p.add_argument("--eot-chunk", type=int, default=None,
                    help="chunk the EoT draws to bound peak activation memory "
-                        "(needed for the 1024px gender purifier)")
+                        "(default: the family's, eval/factory.default_eot_chunk)")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--no-resume", action="store_true",
                    help="ignore any per-evaluation search checkpoint "
@@ -57,13 +61,18 @@ def main(argv: list[str] | None = None):
     args = p.parse_args(argv)
 
     from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset
-    from gen_adversarial_tpu_torch.eval.factory import load_defense, load_ours_for_search
+    from gen_adversarial_tpu_torch.eval.factory import (
+        default_eot_chunk, load_defense, load_ours_for_search)
     from gen_adversarial_tpu_torch.search.alphas import ALPHA_ATTENUATION, AlphaEvaluator
     from gen_adversarial_tpu_torch.search.gp import bayesian_optimize
     from gen_adversarial_tpu_torch.search.grid import create_adversarial_dataset, grid_search
 
+    eot_chunk = args.eot_chunk if args.eot_chunk is not None else default_eot_chunk(
+        experiment_of(args.config), defense_type_of(args.config), args.batch_size,
+        args.eot_steps)
     if args.mode == "make-adv":
-        loaded = load_defense(args.config, eot_steps=args.eot_steps, device=args.device)
+        loaded = load_defense(args.config, eot_steps=args.eot_steps, eot_chunk=eot_chunk,
+                              device=args.device)
         return create_adversarial_dataset(loaded, args.images_path, args.out_dir,
                                           FGSM_BOUND[loaded.experiment], args.n_samples,
                                           eot_steps=args.eot_steps,
@@ -78,7 +87,7 @@ def main(argv: list[str] | None = None):
     evaluator = AlphaEvaluator(make_defense(np.zeros(n_alphas)), images, ds.labels,
                                attenuation=ALPHA_ATTENUATION[exp],
                                eot_steps=args.eot_steps, batch_size=args.batch_size,
-                               eot_chunk=args.eot_chunk, device=args.device)
+                               eot_chunk=eot_chunk, device=args.device)
 
     folder = Path(args.results_folder)
     folder.mkdir(parents=True, exist_ok=True)

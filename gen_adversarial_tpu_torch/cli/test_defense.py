@@ -6,11 +6,15 @@ Usage:
       --images-path /data/cars/test \\
       --results-folder results/ours_cosine_noise_cars \\
       [--attack deepfool|c&w|autoattack] [--batch-size 8] [--eot-steps 32] \\
-      [--device cuda]
+      [--eot-chunk N] [--device cuda]
 
 The config's checkpoint paths point at flax msgpack files (written by either
 package's `save_variables`); the images are a folder of class folders.
-It runs on one CUDA device unless --device cpu is given.
+It runs on one CUDA device unless --device cpu is given. Without
+--eot-chunk the EoT chunk is eval/factory.default_eot_chunk's for the
+config's family at --batch-size (the JAX CLI runs unchunked): gender and
+cars attack gradients at batch 8 and EoT-32 do not fit one 80 GB card
+unchunked.
 
 Data parallel, one process per GPU (the reference's DistributedSampler
 shards):
@@ -37,7 +41,9 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--attack", default=None, choices=[None, "deepfool", "c&w", "autoattack"])
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--eot-steps", type=int, default=32)
-    p.add_argument("--eot-chunk", type=int, default=None)
+    p.add_argument("--eot-chunk", type=int, default=None,
+                   help="EoT draws a forward (default: the family's, "
+                        "eval/factory.default_eot_chunk)")
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16 runs purifier+classifier in bfloat16 (weights cast once, "
@@ -65,10 +71,14 @@ def main(argv: list[str] | None = None) -> dict:
     if args.distributed:
         dist_util.maybe_initialize()
 
-    from gen_adversarial_tpu_torch.eval.factory import load_defense
+    from gen_adversarial_tpu_torch.core.config import defense_type_of, experiment_of
+    from gen_adversarial_tpu_torch.eval.factory import default_eot_chunk, load_defense
     from gen_adversarial_tpu_torch.eval.harness import run_benchmark
 
-    loaded = load_defense(args.config, eot_steps=args.eot_steps, eot_chunk=args.eot_chunk,
+    eot_chunk = args.eot_chunk if args.eot_chunk is not None else default_eot_chunk(
+        experiment_of(args.config), defense_type_of(args.config), args.batch_size,
+        args.eot_steps)
+    loaded = load_defense(args.config, eot_steps=args.eot_steps, eot_chunk=eot_chunk,
                           dtype=args.dtype, remat_policy=args.remat_policy,
                           device=args.device)
     return run_benchmark(loaded, args.images_path, args.results_folder,

@@ -50,6 +50,14 @@ from gen_adversarial_tpu_torch.models.style_transformer.model import StyleTransf
 CLASSIFIER_TYPE = {"gender": "resnet", "ids": "vgg", "cars": "resnext"}
 NVAE_TEMPERATURE = 0.6
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# images x EoT draws a forward may hold where the CLIs choose the EoT chunk
+# (default_eot_chunk), per (experiment, defense type); unlisted: unchunked.
+# At batch 8 and EoT-32 on an H100 80GB (79.2 GiB usable), gender's input
+# gradient ran out at chunk 4 and its 2-class Jacobian peaked at 55.2 GiB at
+# chunk 1; cars' 4-class Jacobian in blocks of 2 peaked at 37.2 GiB at
+# chunk 2 and 65.0 at chunk 4; ids' unchunked gradient at 61.2 GiB
+# (attack_memory.py)
+EOT_DRAW_BUDGET = {("gender", "ours"): 8, ("cars", "ours"): 16}
 
 
 @dataclass
@@ -72,6 +80,22 @@ class LoadedDefense:
 
     def get_purified(self, x, draws):
         return self.defense.get_purified(x, draws)
+
+
+def default_eot_chunk(experiment: str, defense_type: str, batch: int,
+                      eot_steps: int = 32) -> int | None:
+    """The EoT chunk the CLIs take where --eot-chunk is not given: the
+    largest divisor of eot_steps within EOT_DRAW_BUDGET // batch (at least
+    1), or None (unchunked, load_defense's own default) where the family has
+    no budget or the chunk covers every draw. A chunk changes how many draws
+    one forward holds, not what the defense computes on them."""
+    budget = EOT_DRAW_BUDGET.get((experiment, defense_type))
+    if budget is None:
+        return None
+    chunk = max(1, budget // batch)
+    while eot_steps % chunk:
+        chunk -= 1
+    return None if chunk >= eot_steps else chunk
 
 
 def build_attacks(experiment: str, n_classes: int, deepfool_chunk: int | None = None,
@@ -151,8 +175,9 @@ def load_defense(config_path: str, eot_steps: int = 32, eot_chunk: int | None = 
     the attacks' math stays float32. The competitors (A-VAE, ND-VAE) run at
     the caller's eot_steps, without remat. As in the JAX package, the
     environment's GAT_DF_COT_CHUNK sets DeepFool's cotangent_chunk and
-    GAT_COT_CHUNK AutoAttack's FAB's (0 or unset: None, which for FAB is
-    attacks/autoattack.fab_block's block); under a remat_policy
+    GAT_COT_CHUNK AutoAttack's FAB's (0 or unset: None, which both attacks
+    take as attacks/utils.class_block's block); eot_chunk None is unchunked
+    (the CLIs pass default_eot_chunk's); under a remat_policy
     the forwards that are differentiated in blocks recompute their purifier
     whole (defenses/base.py)."""
     device = resolve_device(device, "load_defense")

@@ -25,8 +25,23 @@ neither on the rest (on the CPU neither launches). The report is written
 after every config, and a rerun keeps the ok rows and runs the others again.
 The exit code is 1 unless every row is ok.
 
+With --cli-defaults each config runs as cli/test_defense.py runs it when no
+flag is given: one batch of the CLI's 8 images at EoT-32, the EoT chunk the
+CLI takes (eval/factory.default_eot_chunk) and DeepFool's own class block
+(attacks/utils.class_block), DeepFool cut to one step. The 8 images lie in
+one class folder and the classifier's class-0 bias is raised until every
+image is classified 0 under the harness's clean draw (label_all_as_zero),
+so that DeepFool's step runs: its class Jacobian sets the attacks' peak.
+Each row also records the chunk, the blocks DeepFool took, the bias raised
+and the card's capacity; a row that runs out of memory is not ok (nothing
+retries at a smaller chunk). No extra row in this mode. --batch-size N runs
+it as the CLI runs with that flag (one batch of N images), to find the
+batch with which a config that does not fit at 8 does.
+
 Usage: python3 -m gen_adversarial_tpu_torch.smoke_all_configs
     [--out SMOKE_torch.json] [--only SUBSTR] [--work DIR] [--device cuda]
+    [--cli-defaults [--batch-size N]]  (default --out
+    SMOKE_DEFAULTS_torch.json, --work .scratch/smoke_matrix_defaults)
 """
 
 from __future__ import annotations
@@ -47,16 +62,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gen_adversarial_tpu_torch.attacks import deepfool as deepfool_module
 from gen_adversarial_tpu_torch.core.checkpoint import save_variables
 from gen_adversarial_tpu_torch.core.config import (
     IMAGE_SIZE, N_CLASSES, DefenseConfig, defense_type_of, experiment_of)
 from gen_adversarial_tpu_torch.core.convert import to_jax_variables
 from gen_adversarial_tpu_torch.core.init import init_flax_tensor_
 from gen_adversarial_tpu_torch.data import png
+from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset
 from gen_adversarial_tpu_torch.eval import factory
-from gen_adversarial_tpu_torch.eval.harness import run_benchmark
+from gen_adversarial_tpu_torch.eval.harness import batch_generator, run_benchmark
 from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE, init_tensor_, random_init_
 from gen_adversarial_tpu_torch.gender import init_stylegan_tensor_
+from gen_adversarial_tpu_torch.models.classifiers import Projector
 from gen_adversarial_tpu_torch.ops import depthwise as k1
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
 
@@ -75,6 +93,10 @@ EOT_STEPS = 2
 MAX_IMAGES = 2
 # the harness's per-attack log line ends in its seconds
 ATTACK_SECS = re.compile(r"\((\d+\.\d)s\)$")
+# --cli-defaults: cli/test_defense.py's batch, EoT and seed, and DeepFool's
+# steps (its peak is a step's, whatever the number of steps)
+CLI_BATCH, CLI_EOT_STEPS, CLI_SEED = 8, 32, 42
+CLI_DEEPFOOL_ITERS = 1
 
 
 def fabricate_dataset(root: Path, size: int, n_classes: int, n_per_class: int = 2) -> None:
@@ -84,6 +106,33 @@ def fabricate_dataset(root: Path, size: int, n_classes: int, n_per_class: int = 
         for i in range(n_per_class):
             png.write(root / f"class_{c:03d}" / f"{i}.png",
                       (rng.rand(size, size, 3) * 255).astype(np.uint8))
+
+
+def label_all_as_zero(loaded, images: torch.Tensor, device: torch.device, seed: int,
+                      margin_draws: int) -> dict:
+    """Raise the classifier head's class-0 bias until every image is
+    classified 0 under the harness's clean draw of batch 0 (run_benchmark
+    at `seed`) and `margin_draws` more, by the median margin of the random
+    head's top class over its second, so that the attacks have work;
+    returns the raise and the margin."""
+    head = next(m for m in loaded.defense.classifier.modules() if isinstance(m, Projector))
+    net = loaded.net
+
+    def draws():  # new generators: a forward moves its generator on
+        return [batch_generator(seed, 0, 0, 0, device)] + [
+            torch.Generator(device=device).manual_seed(1000 + i) for i in range(margin_draws)]
+
+    with torch.no_grad():
+        logits = torch.stack([net(images, d) for d in draws()])  # (D, B, C)
+        top2 = logits[0].topk(2, dim=1).values
+        margin = (top2[:, 0] - top2[:, 1]).median().item()
+        lost = (logits[..., 1:].max(-1).values - logits[..., 0]).max().item()
+        head.fc1.bias[0] += lost + margin
+        preds = [net(images, d).argmax(1) for d in draws()]
+    if any(bool((p != 0).any()) for p in preds):
+        raise RuntimeError(f"after raising the class-0 bias by {lost + margin}, the "
+                           f"predictions are {[p.tolist() for p in preds]}")
+    return {"bias_raise": lost + margin, "top2_margin": margin}
 
 
 def _random(build, device: torch.device, init) -> torch.nn.Module:
@@ -172,32 +221,58 @@ def check_launches(launches: dict, expected: set) -> None:
 
 
 def run_config(name: str, config: Path, data: Path, results: Path, experiment: str,
-               device: torch.device) -> dict:
+               device: torch.device, cli_batch: int | None = None) -> dict:
     """load_defense and a one-batch DeepFool run_benchmark of one config
-    copy; the row, with the kernels' launches since the caller reset them
-    (raises where the run fails)."""
+    copy (with cli_batch: as the CLI runs it at that --batch-size and its
+    other defaults, the images labelled 0); the row, with the kernels'
+    launches since the caller reset them (raises where the run fails)."""
     cuda = device.type == "cuda"
     shutil.rmtree(results, ignore_errors=True)  # no earlier run's progress file
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
+    kind = defense_type_of(name)
+    cli_defaults = cli_batch is not None
+    if cli_defaults:
+        batch, eot_steps, max_images = cli_batch, CLI_EOT_STEPS, cli_batch
+        eot_chunk = factory.default_eot_chunk(experiment, kind, batch, eot_steps)
+    else:
+        batch, eot_steps, max_images = BATCH[experiment], EOT_STEPS, MAX_IMAGES
+        eot_chunk = EOT_CHUNK[experiment]
     t0 = time.monotonic()
-    loaded = factory.load_defense(str(config), eot_steps=EOT_STEPS,
-                                  eot_chunk=EOT_CHUNK[experiment], device=device)
+    loaded = factory.load_defense(str(config), eot_steps=eot_steps, eot_chunk=eot_chunk,
+                                  device=device)
     if cuda:
         torch.cuda.synchronize(device)
     load_secs = time.monotonic() - t0
-    deepfool, steps = loaded.attacks["deepfool"], []
+    labels = None
+    if cli_defaults:
+        dataset = ImageLabelDataset(str(data), loaded.image_size)
+        images = torch.tensor(np.stack([dataset.load_image(i) for i in range(batch)]),
+                              device=device)
+        labels = label_all_as_zero(loaded, images, device, CLI_SEED, 0)
+        del images
+    deepfool, steps, blocks = loaded.attacks["deepfool"], [], []
+    depth = {"max_iter": CLI_DEEPFOOL_ITERS} if cli_defaults else {}
 
     def counted_deepfool(*args):
-        *out, n = deepfool(*args, return_iters=True)
+        *out, n = deepfool(*args, return_iters=True, **depth)
         steps.append(n)
         return out
 
+    def recorded_class_grads(*args, **kw):
+        blocks.append(kw["cotangent_chunk"])
+        return class_grads(*args, **kw)
+
     loaded.attacks["deepfool"] = counted_deepfool
+    class_grads = deepfool_module.class_grads
+    deepfool_module.class_grads = recorded_class_grads
     msgs = []
-    res = run_benchmark(loaded, str(data), str(results), batch_size=BATCH[experiment],
-                        max_images=MAX_IMAGES, attack_filter="deepfool", plots=False,
-                        log_fn=msgs.append)
+    try:
+        res = run_benchmark(loaded, str(data), str(results), batch_size=batch,
+                            max_images=max_images, attack_filter="deepfool", plots=False,
+                            log_fn=msgs.append)
+    finally:
+        deepfool_module.class_grads = class_grads
     written = results / "results.json"
     if not written.exists() or "DeepFool" not in json.loads(written.read_text()):
         raise RuntimeError(f"{written} holds no DeepFool results")
@@ -206,9 +281,22 @@ def run_config(name: str, config: Path, data: Path, results: Path, experiment: s
            "clean": res["Clean"], "load_secs": load_secs,
            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
            "k1_launches": k1.launches, "k2_launches": k2.launches, "deepfool_steps": steps}
+    if cli_defaults:
+        row.update(batch=batch, eot_steps=loaded.eot_steps, eot_chunk=loaded.eot_chunk,
+                   deepfool_blocks=sorted(set(blocks), key=str), labels=labels)
+        if not any(steps):
+            raise RuntimeError(f"DeepFool took no step ({steps}): its class Jacobian's peak "
+                               "was not reached")
+        if cuda and row["peak_gib"] >= capacity_gib(device):
+            raise RuntimeError(f"peak {row['peak_gib']:.2f} GiB reached the card's "
+                               f"{capacity_gib(device):.2f}")
     check_launches({"K1": k1.launches, "K2": k2.launches},
                    path_kernels(name, experiment, device))
     return row
+
+
+def capacity_gib(device: torch.device) -> float:
+    return torch.cuda.get_device_properties(device).total_memory / 2**30
 
 
 def device_line(device: torch.device) -> str:
@@ -246,11 +334,23 @@ def source_identity() -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser("the config matrix on the card")
-    p.add_argument("--out", default=str(REPO / "SMOKE_torch.json"))
+    p.add_argument("--out", default=None,
+                   help="SMOKE_torch.json (SMOKE_DEFAULTS_torch.json with --cli-defaults)")
     p.add_argument("--only", default=None, help="substring filter on config names")
-    p.add_argument("--work", default=str(REPO / ".scratch" / "smoke_matrix"))
+    p.add_argument("--work", default=None,
+                   help=".scratch/smoke_matrix (_defaults with --cli-defaults)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--cli-defaults", action="store_true",
+                   help="each config at the test_defense CLI's defaults (module docstring)")
+    p.add_argument("--batch-size", type=int, default=CLI_BATCH,
+                   help="with --cli-defaults: the CLI's --batch-size")
     args = p.parse_args(argv)
+    defaults = args.cli_defaults
+    cli_batch = args.batch_size if defaults else None
+    args.out = args.out or str(REPO / ("SMOKE_DEFAULTS_torch.json" if defaults
+                                       else "SMOKE_torch.json"))
+    args.work = args.work or str(REPO / ".scratch" / ("smoke_matrix_defaults" if defaults
+                                                      else "smoke_matrix"))
     device = factory.resolve_device(args.device, "smoke_all_configs")
     work = Path(args.work)
     work.mkdir(parents=True, exist_ok=True)
@@ -270,9 +370,14 @@ def main(argv: list[str] | None = None) -> int:
               "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
               "nvidia_smi": device_line(device), "torch": torch.__version__,
               "cuda": torch.version.cuda, **source_identity(),
-              "eot_steps": EOT_STEPS, "max_images": MAX_IMAGES, "batch": BATCH,
-              "nvae_config": dataclasses.asdict(NVAE_CONFIG),
-              "extra_nvae_config": dataclasses.asdict(FLOW_NVAE_CONFIG)}
+              "nvae_config": dataclasses.asdict(NVAE_CONFIG)}
+    if defaults:
+        header.update(cli_defaults=True, eot_steps=CLI_EOT_STEPS, max_images=cli_batch,
+                      batch=cli_batch, deepfool_max_iter=CLI_DEEPFOOL_ITERS,
+                      capacity_gib=capacity_gib(device) if device.type == "cuda" else None)
+    else:
+        header.update(eot_steps=EOT_STEPS, max_images=MAX_IMAGES, batch=BATCH,
+                      extra_nvae_config=dataclasses.asdict(FLOW_NVAE_CONFIG))
 
     def write_report(partial: bool) -> None:
         out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -294,7 +399,8 @@ def main(argv: list[str] | None = None) -> int:
     configs = sorted(CONFIGS.glob("*.yaml"),
                      key=lambda p: (not p.stem.startswith("ours"), p.stem))
     rows = [(p.stem, p, results) for p in configs]
-    rows.append((EXTRA_ROW, CONFIGS / f"{EXTRA_CONFIG}.yaml", extra))
+    if not defaults:
+        rows.append((EXTRA_ROW, CONFIGS / f"{EXTRA_CONFIG}.yaml", extra))
     for name, cfg_path, table in rows:
         if (args.only and args.only not in name) or name in table:
             continue
@@ -304,7 +410,11 @@ def main(argv: list[str] | None = None) -> int:
         k1.reset_launches()
         k2.reset_launches()
         try:
-            fabricate_dataset(d / "data", IMAGE_SIZE[exp], N_CLASSES[exp])
+            if defaults:  # the CLI's batch, in one class folder (label 0)
+                fabricate_dataset(d / "data_defaults", IMAGE_SIZE[exp], 1,
+                                  n_per_class=cli_batch)
+            else:
+                fabricate_dataset(d / "data", IMAGE_SIZE[exp], N_CLASSES[exp])
             clf = fabricated(d / "classifier.msgpack",
                              lambda f: fabricate_classifier(f, exp, device))
             kind, ae = defense_type_of(str(cfg_path)), None
@@ -322,7 +432,8 @@ def main(argv: list[str] | None = None) -> int:
             config = work / ("extra" if is_extra else "") / cfg_path.name
             copy_config(cfg_path, config, clf, ae)
             results_dir = work / "results" / name
-            table[name] = run_config(name, config, d / "data", results_dir, exp, device)
+            data = d / ("data_defaults" if defaults else "data")
+            table[name] = run_config(name, config, data, results_dir, exp, device, cli_batch)
             print(f"[ok] {name} ({table[name]['secs']:.1f}s)", flush=True)
         except Exception as e:  # a failed config is a row; the matrix goes on
             traceback.print_exc()

@@ -9,8 +9,9 @@ and the classifier are fabricated at full width by smoke_all_configs'
 functions (ids: the flagship NVAE and VGG11-BN over 100 classes; gender:
 PSP(1024) and ResNet50; cars: StyleTransformer(512) and ResNeXt50), a copy
 of the config points at them, and `load_defense` loads it at EoT-32 with the
-family's EoT chunk (EOT_CHUNK); `GAT_COT_CHUNK` is read by the factory as
-always (unset: FAB's own block, attacks/autoattack.fab_block).
+EoT chunk the CLIs take at the family's batch (eval/factory.default_eot_chunk);
+`GAT_COT_CHUNK` is read by the factory as always (unset: FAB's own block,
+attacks/utils.class_block).
 
 Labels: the BATCH images lie in one class folder (label 0), and the
 classifier's head bias of class 0 is raised until every image is classified
@@ -61,14 +62,13 @@ import torch
 from gen_adversarial_tpu_torch.core.config import IMAGE_SIZE, N_CLASSES
 from gen_adversarial_tpu_torch.data.datasets import ImageLabelDataset
 from gen_adversarial_tpu_torch.eval import factory
-from gen_adversarial_tpu_torch.eval.harness import batch_generator, run_benchmark
+from gen_adversarial_tpu_torch.eval.harness import run_benchmark
 from gen_adversarial_tpu_torch.flagship import FLAGSHIP_NVAE
-from gen_adversarial_tpu_torch.models.classifiers import Projector
 from gen_adversarial_tpu_torch.ops import depthwise as k1
 from gen_adversarial_tpu_torch.ops import upfirdn as k2
 from gen_adversarial_tpu_torch.smoke_all_configs import (
     check_launches, copy_config, device_line, fabricate_classifier, fabricate_dataset,
-    fabricate_ours, path_kernels, source_identity)
+    fabricate_ours, label_all_as_zero, path_kernels, source_identity)
 
 # the module, which the package's `autoattack` function shadows
 aa = importlib.import_module("gen_adversarial_tpu_torch.attacks.autoattack")
@@ -78,13 +78,8 @@ CONFIGS = REPO / "configs"
 FAMILIES = ("ids", "gender", "cars")
 NVAE_CONFIG = FLAGSHIP_NVAE
 EOT_STEPS = 32
-# the CLI's default batch (cli/test_defense.py); the EoT chunk with which
-# the StyleGAN2 families' attack gradients fit one H100 (ids: none). At
-# batch 8 an APGD gradient ran out of the card's 79.2 GiB at gender's chunk
-# of 4 and cars' of 8; FAB's 2-class Jacobian peaked at 75.7 GiB at gender's
-# chunk of 2, and cars' 4-class one ran out at 4 (NVIDIA H100 80GB HBM3)
+# the CLI's default batch (cli/test_defense.py)
 BATCH = {"ids": 8, "gender": 8, "cars": 8}
-EOT_CHUNK = {"ids": None, "gender": 1, "cars": 2}
 APGD_DEPTH, FAB_DEPTH = 2, 2
 SEED = 42  # run_benchmark's default seed: its clean draw is the labels' draw
 MARGIN_DRAWS = 2  # draws besides the harness's clean one that must agree
@@ -94,34 +89,15 @@ STAGES = ("apgd_ce_0.5", "apgd_ce_1", "apgd_ce_4", "apgd_dlr_0.5", "apgd_dlr_2",
 ALWAYS_RUN = ("apgd_ce_0.5", "apgd_dlr_0.5", "fab")
 
 
+def eot_chunk(experiment: str) -> int | None:
+    """The EoT chunk the CLIs take for the family's ours_* config at its
+    batch (eval/factory.default_eot_chunk)."""
+    return factory.default_eot_chunk(experiment, "ours", BATCH[experiment], EOT_STEPS)
+
+
 def expected_stages(n_classes: int) -> tuple:
     """The stages of the ensemble at n_classes (no DLR at 3 or fewer)."""
     return tuple(s for s in STAGES if n_classes > 3 or "dlr" not in s)
-
-
-def label_all_as_zero(loaded, images: torch.Tensor, device: torch.device) -> dict:
-    """Raise the head's class-0 bias until every image is classified 0 under
-    the harness's clean draw of batch 0 and MARGIN_DRAWS more, by the median
-    margin of the random head's top class over its second; returns the
-    margins."""
-    head = next(m for m in loaded.defense.classifier.modules() if isinstance(m, Projector))
-    net = loaded.net
-
-    def draws():  # new generators: a forward moves its generator on
-        return [batch_generator(SEED, 0, 0, 0, device)] + [
-            torch.Generator(device=device).manual_seed(1000 + i) for i in range(MARGIN_DRAWS)]
-
-    with torch.no_grad():
-        logits = torch.stack([net(images, d) for d in draws()])  # (D, B, C)
-        top2 = logits[0].topk(2, dim=1).values
-        margin = (top2[:, 0] - top2[:, 1]).median().item()
-        lost = (logits[..., 1:].max(-1).values - logits[..., 0]).max().item()
-        head.fc1.bias[0] += lost + margin
-        preds = [net(images, d).argmax(1) for d in draws()]
-    if any(bool((p != 0).any()) for p in preds):
-        raise RuntimeError(f"after raising the class-0 bias by {lost + margin}, the "
-                           f"predictions are {[p.tolist() for p in preds]}")
-    return {"bias_raise": lost + margin, "top2_margin": margin}
 
 
 class StageRecorder:
@@ -198,14 +174,14 @@ def run_family(experiment: str, work: Path, device: torch.device) -> dict:
 
     t = time.monotonic()
     loaded = factory.load_defense(str(config), eot_steps=EOT_STEPS,
-                                  eot_chunk=EOT_CHUNK[experiment], device=device)
+                                  eot_chunk=eot_chunk(experiment), device=device)
     if cuda:
         torch.cuda.synchronize(device)
     load_s = time.monotonic() - t
     dataset = ImageLabelDataset(str(data), loaded.image_size)
     images = torch.tensor(np.stack([dataset.load_image(i) for i in range(batch)]),
                           device=device)
-    labels = label_all_as_zero(loaded, images, device)
+    labels = label_all_as_zero(loaded, images, device, SEED, MARGIN_DRAWS)
 
     results = d / "results"
     shutil.rmtree(results, ignore_errors=True)
@@ -255,7 +231,7 @@ def run_family(experiment: str, work: Path, device: torch.device) -> dict:
         return max(values) if values else None
 
     return {"ok": True, "config": name, "batch": batch, "eot_steps": EOT_STEPS,
-            "eot_chunk": EOT_CHUNK[experiment], "n_classes": n_classes,
+            "eot_chunk": loaded.eot_chunk, "n_classes": n_classes,
             "gat_cot_chunk": os.environ.get("GAT_COT_CHUNK"),
             "fab_block": recorder.fab_blocks[0], "clean": res["Clean"],
             "autoattack": written["AutoAttack"], "labels": labels,
@@ -292,7 +268,8 @@ def main(argv: list[str] | None = None) -> int:
               "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
               "nvidia_smi": device_line(device), "torch": torch.__version__,
               "cuda": torch.version.cuda, **source_identity(), "eot_steps": EOT_STEPS,
-              "batch": BATCH, "eot_chunk": EOT_CHUNK, "apgd_depth": APGD_DEPTH,
+              "batch": BATCH, "eot_chunk": {f: eot_chunk(f) for f in FAMILIES},
+              "apgd_depth": APGD_DEPTH,
               "fab_depth": FAB_DEPTH, "full_apgd_iters": aa.APGD_ITERS,
               "full_fab_iters": aa.FAB_ITERS}
     run = [f for f in FAMILIES if args.only in (None, f)]

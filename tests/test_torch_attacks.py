@@ -5,8 +5,8 @@ small conv classifier (chunked and unchunked, and the torch.autograd route
 against torch.func) and through K2's batching rule, every attack against its JAX twin on the deterministic
 linear net of tests/test_attack_parity.py (NHWC flattened in NCHW order),
 with the same numpy noise injected on both sides where an attack draws, the
-staged AutoAttack against the monolithic one, the attack suites, and FAB in
-the ensemble's default blocks (autoattack.fab_block) against one block."""
+staged AutoAttack against the monolithic one, the attack suites, and FAB and
+DeepFool in their default blocks (utils.class_block) against one block."""
 
 import dataclasses
 import importlib
@@ -27,6 +27,7 @@ from gen_adversarial_tpu.defenses.base import ClassifierDefense as JaxClassifier
 from gen_adversarial_tpu.defenses.base import make_classifier_apply as jax_classifier_apply
 from gen_adversarial_tpu.models.classifiers import VGG11BN as JaxVGG
 from gen_adversarial_tpu_torch import attacks
+from gen_adversarial_tpu_torch.attacks import utils
 from gen_adversarial_tpu_torch.attacks.apgd import _check_schedule, dlr_loss
 from gen_adversarial_tpu_torch.core.config import ATTACK_SUITES
 from gen_adversarial_tpu_torch.defenses.base import ClassifierDefense, make_classifier_apply
@@ -409,43 +410,76 @@ def test_attack_suites_and_build_attacks_match_jax():
         assert suite["autoattack"].keywords == dict(n_classes=n_classes, cotangent_chunk=5)
 
 
-def test_fab_default_block_equals_one_block(monkeypatch):
-    """FAB on a small ids defense over 100 classes (a 32-px NVAE of 2 x 2
-    groups, a tiny VGG, EoT-2), 2 images, 2 steps: with the ensemble's
-    default block (autoattack.fab_block: 8 cotangents a backward at a batch
-    of 2) as with one block of all 100 (cotangent_chunk None), on the same
-    draws. FAB finds no adversary in 2 steps here, so its iterates are held
-    too: each step's point and class gradients, recorded at
-    utils.class_grads, within CHUNK_RTOL."""
-    block = autoattack_module.fab_block(100, 2)
-    assert block == 8
+@pytest.fixture(scope="module")
+def small_ids_net():
+    """A small ids defense over 100 classes (a 32-px NVAE of 2 x 2 groups, a
+    tiny VGG) under EoT-2."""
     cfg = NVAEConfig(resolution=32, initial_channels=8, num_scales=2, num_groups_per_scale=2,
                      is_adaptive=False, num_cells_per_group=1, num_latent_per_group=4,
                      num_mixtures=3)
     plan = (4, "M", 8, "M", 8, 8, "M", 8, 8, "M", 8, 8, "M")
-    net = eot_wrap(flagship(device="cpu", cfg=cfg, vgg_plan=plan, n_classes=100, seed=1), 2)
-    x = torch.tensor(np.random.RandomState(4).rand(2, 32, 32, 3).astype(np.float32))
+    return eot_wrap(flagship(device="cpu", cfg=cfg, vgg_plan=plan, n_classes=100, seed=1), 2)
+
+
+# the attack, its images, its classes, the default block at that batch, and
+# the one-block chunk (FAB's None; DeepFool's None is now the default block)
+DEFAULT_BLOCK_CASES = {"fab": (2, 100, 8, None), "deepfool": (8, 8, 2, 8)}
+
+
+def test_fab_default_block_equals_one_block(small_ids_net, monkeypatch):
+    _default_block_equals_one_block(small_ids_net, monkeypatch, "fab")
+
+
+def test_deepfool_default_block_equals_one_block(small_ids_net, monkeypatch):
+    _default_block_equals_one_block(small_ids_net, monkeypatch, "deepfool")
+
+
+def _default_block_equals_one_block(small_ids_net, monkeypatch, attack):
+    """FAB and DeepFool on the small ids defense, from the same draws, with
+    the default block where none is given (utils.class_block: 16 cotangent
+    samples a backward, so 8 of FAB's 100 classes at a batch of 2 and 2 of
+    DeepFool's 8 at the CLI's batch of 8) as with one block of every class;
+    FAB called with the block as autoattack._run passes it (2 steps),
+    DeepFool with none (3 steps). Neither finds an adversary on this random
+    defense at these depths, so their iterates are held too: each step's
+    point, logits and class gradients, recorded at utils.class_grads with the
+    block each run took. DeepFool's success, bounds, images, step count and
+    iterates are equal exactly (the blocks' gradients came out bit for bit
+    the same here); FAB's images and iterates within CHUNK_RTOL."""
+    n_images, n_classes, block, one_block = DEFAULT_BLOCK_CASES[attack]
+    assert utils.class_block(n_classes, n_images) == block
+    net = small_ids_net
+    x = torch.tensor(np.random.RandomState(4).rand(n_images, 32, 32, 3).astype(np.float32))
     with torch.no_grad():
         y = net(x, torch.Generator().manual_seed(2)).argmax(1)
-    fab = importlib.import_module("gen_adversarial_tpu_torch.attacks.fab")
-    class_grads, steps = fab.class_grads, []
+    module = importlib.import_module(f"gen_adversarial_tpu_torch.attacks.{attack}")
+    class_grads, steps = module.class_grads, []
 
-    def recorded(net, x_i, draws, **kw):
-        logits, grads = class_grads(net, x_i, draws, **kw)
-        steps[-1].append((x_i, logits, grads))
+    def recorded(net, x_i, draws, *args, **kw):
+        logits, grads = class_grads(net, x_i, draws, *args, **kw)
+        steps[-1].append((kw["cotangent_chunk"], x_i, logits, grads))
         return logits, grads
 
-    monkeypatch.setattr(fab, "class_grads", recorded)
+    monkeypatch.setattr(module, "class_grads", recorded)
     runs = []
-    for chunk in (block, None):
+    for chunk in (None, one_block) if attack == "deepfool" else (block, None):
         steps.append([])
-        runs.append(autoattack_module.fab_attack(net, x, y, torch.Generator().manual_seed(5),
-                                                 n_iter=2, cotangent_chunk=chunk))
-    (got_s, got_b, got_a), (want_s, want_b, want_a) = runs
+        if attack == "fab":
+            runs.append(autoattack_module.fab_attack(
+                net, x, y, torch.Generator().manual_seed(5), n_iter=2, cotangent_chunk=chunk))
+        else:
+            runs.append(attacks.deepfool_attack(
+                net, x, y, torch.Generator().manual_seed(5), num_classes=n_classes,
+                max_iter=3, return_iters=True, cotangent_chunk=chunk))
+    (got_s, got_b, got_a, *got_n), (want_s, want_b, want_a, *want_n) = runs
+    assert [s[0] for s in steps[0]] == [block] * len(steps[0])
+    assert [s[0] for s in steps[1]] == [one_block] * len(steps[1])
+    assert len(steps[0]) == len(steps[1]) == (3 if attack == "deepfool" else 2)
+    assert got_n == want_n == ([3] if attack == "deepfool" else [])
     assert torch.equal(got_s, want_s) and torch.equal(got_b, want_b)
-    torch.testing.assert_close(got_a, want_a, rtol=0, atol=CHUNK_RTOL)
-    assert len(steps[0]) == len(steps[1]) == 2
-    assert (steps[0][1][0] - x).abs().max() > 0.01  # the second step's point moved
+    tol = 0.0 if attack == "deepfool" else CHUNK_RTOL
+    torch.testing.assert_close(got_a, want_a, rtol=0, atol=tol)
+    assert (steps[0][-1][1] - x).abs().max() > 0.01  # the last step's point moved
     for got, want in zip(steps[0], steps[1]):
-        for g, w in zip(got, want):
-            assert (g - w).abs().max() <= CHUNK_RTOL * w.abs().max()
+        for g, w in zip(got[1:], want[1:]):
+            assert (g - w).abs().max() <= tol * w.abs().max()

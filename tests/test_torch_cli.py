@@ -1,13 +1,15 @@
 """The port's CLI (gen_adversarial_tpu_torch/cli/test_defense.py) on the
 tiny world of tests/test_harness.py: `main()` with --device cpu writes
 results.json in the JAX schema; the multi-device flags and a CUDA device
-that is not there raise."""
+that is not there raise; the EoT chunk it passes to load_defense is the
+family's default unless --eot-chunk is given."""
 
 import json
 
 import pytest
 import torch
 
+import gen_adversarial_tpu_torch.eval.factory as factory
 from gen_adversarial_tpu_torch.cli.test_defense import main
 from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from tests.torch_port_helpers import patch_tiny_classifier, tiny_world
@@ -51,3 +53,34 @@ def test_the_default_device_is_cuda(args):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(args)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("name,flags,want", [
+    ("ours_cosine_noise_gender", [], 1),
+    ("ours_cosine_noise_gender", ["--batch-size", "4"], 2),
+    ("ours_linear_blur_cars", [], 2),
+    ("ours_cosine_noise_ids", [], None),
+    ("no_defense_gender", [], None),
+    ("ours_cosine_noise_gender", ["--eot-chunk", "4"], 4),
+    ("ours_cosine_noise_ids", ["--eot-chunk", "8"], 8)])
+def test_the_eot_chunk_is_the_familys_default_unless_given(tmp_path, monkeypatch, name, flags,
+                                                          want):
+    """Without --eot-chunk the CLI passes factory.default_eot_chunk's at
+    --batch-size (8 by default) to load_defense: gender 1 (2 at batch 4),
+    cars 2, ids and the classifier alone none; a given --eot-chunk wins.
+    load_defense is replaced by a recorder (no model is built)."""
+    seen = {}
+
+    def load_defense(config, **kw):
+        seen.update(kw)
+        raise _Stop
+
+    monkeypatch.setattr(factory, "load_defense", load_defense)
+    with pytest.raises(_Stop):
+        main(["--config", str(tmp_path / f"{name}.yaml"), "--images-path", str(tmp_path),
+              "--results-folder", str(tmp_path / "results")] + flags)
+    assert seen["eot_chunk"] == want and seen["eot_steps"] == 32

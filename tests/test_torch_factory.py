@@ -203,6 +203,22 @@ def test_a_remat_policy_with_a_cotangent_chunk_raises_before_loading(world, tiny
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("experiment,defense_type,batch,eot_steps,want", [
+    ("gender", "ours", 8, 32, 1), ("gender", "ours", 4, 32, 2), ("gender", "ours", 1, 32, 8),
+    ("cars", "ours", 8, 32, 2), ("cars", "ours", 3, 32, 4), ("cars", "ours", 1, 16, None),
+    ("ids", "ours", 8, 32, None), ("gender", "base", 8, 32, None),
+    ("cars", "ablation", 8, 32, None)])
+def test_default_eot_chunk(experiment, defense_type, batch, eot_steps, want):
+    """The CLIs' EoT chunk: EOT_DRAW_BUDGET // batch draws (gender 8 images
+    x draws, cars 16), brought down to a divisor of eot_steps (cars at batch
+    3: 5 -> 4), none where that covers every draw, and none for a family
+    without a budget (ids; the classifier alone and the ablations)."""
+    got = factory.default_eot_chunk(experiment, defense_type, batch, eot_steps)
+    assert got == want
+    if got is not None:
+        assert eot_steps % got == 0
+
+
 @pytest.mark.parametrize("env", [{"GAT_DF_COT_CHUNK": "3"}, {"GAT_COT_CHUNK": "5"},
                                  {"GAT_DF_COT_CHUNK": "3", "GAT_COT_CHUNK": "5"},
                                  {"GAT_DF_COT_CHUNK": "0", "GAT_COT_CHUNK": "0"}])
@@ -210,11 +226,14 @@ def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeyp
                                                  tmp_path, env):
     """As in the JAX package, GAT_DF_COT_CHUNK is DeepFool's class-jacobian
     block and GAT_COT_CHUNK FAB's (0 or unset: None), each set alone and
-    both: the attacks' keywords, and the chunk FAB is called with inside the
-    monolithic AutoAttack and inside the staged one that run_benchmark builds
-    (APGD and FAB replaced by recorders; C&W takes no chunk): GAT_COT_CHUNK's
-    where it is set, else the ensemble's own `fab_block` (8 of the 100
-    classes at a batch of 2)."""
+    both: the attacks' keywords, the block DeepFool's class gradients take
+    on a batch of 4 (GAT_DF_COT_CHUNK's where it is set, else
+    `utils.class_block`'s 4 of its 8 classes; the JAX package takes one
+    block), and the chunk FAB is called with inside the monolithic
+    AutoAttack and inside the staged one that run_benchmark builds (APGD and
+    FAB replaced by recorders; C&W takes no chunk): GAT_COT_CHUNK's where it
+    is set, else `utils.class_block`'s (8 of the 100 classes at a batch of
+    2)."""
     for name in ("GAT_DF_COT_CHUNK", "GAT_COT_CHUNK"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -227,6 +246,24 @@ def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeyp
                                                      "cotangent_chunk": fab_chunk}
     assert "cotangent_chunk" not in loaded.attacks["c&w"].keywords
 
+    import importlib
+
+    from gen_adversarial_tpu_torch.attacks import utils
+    deepfool_module = importlib.import_module("gen_adversarial_tpu_torch.attacks.deepfool")
+    class_grads, blocks = deepfool_module.class_grads, []
+
+    def recorded(*args, **kw):
+        blocks.append(kw["cotangent_chunk"])
+        return class_grads(*args, **kw)
+
+    monkeypatch.setattr(deepfool_module, "class_grads", recorded)
+    x4 = torch.tensor(np.concatenate([_images(4), _images(5)])).clamp(0, 1)
+    with torch.no_grad():
+        y4 = loaded.net(x4, torch.Generator().manual_seed(1)).argmax(1)
+    loaded.attacks["deepfool"](loaded.net, x4, y4, torch.Generator().manual_seed(1),
+                               max_iter=1)
+    assert utils.class_block(8, 4) == 4 and blocks == [deepfool_chunk or 4]
+
     seen = []
 
     def fake_apgd(net, images, labels, draws, *args):
@@ -236,8 +273,6 @@ def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeyp
     def fake_fab(net, images, labels, draws, **kw):
         seen.append(kw["cotangent_chunk"])
         return fake_apgd(net, images, labels, draws)
-
-    import importlib
 
     from gen_adversarial_tpu_torch.data import png
     from gen_adversarial_tpu_torch.eval.harness import run_benchmark
@@ -252,7 +287,7 @@ def test_each_cotangent_chunk_reaches_its_attack(world, tiny_classifier, monkeyp
                   (_images(i)[0].clip(0, 1) * 255).round().astype(np.uint8))
     run_benchmark(loaded, str(tmp_path / "images"), str(tmp_path / "results"), batch_size=2,
                   attack_filter="autoattack", plots=False, log_fn=lambda msg: None)
-    want = fab_chunk or autoattack_module.fab_block(100, 2)
+    want = fab_chunk or utils.class_block(100, 2)
     assert want == (fab_chunk or 8) and seen == [want, want]
 
 

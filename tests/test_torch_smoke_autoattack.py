@@ -8,7 +8,9 @@ each stage at 1 iteration: about 50 s of one CPU thread. One run
 of `main` over the three families: each reaches the stages the ensemble
 runs at its class count (7 with ids' 100 classes and cars' 4, no APGD-DLR
 with gender's 2), results.json holds AutoAttack, and the attacks' depths
-and functions are restored after the run."""
+and functions are restored after the run. Then the paper's commands at the
+CLIs' defaults (gen_adversarial_tpu_torch/smoke_cli_defaults.py) rehearsed
+on the small ids family: test_defense, make-adv, grid and bo."""
 
 import importlib
 import json
@@ -20,7 +22,10 @@ import torch
 import gen_adversarial_tpu_torch.attack_memory as attack_memory
 import gen_adversarial_tpu_torch.eval.factory as factory
 import gen_adversarial_tpu_torch.smoke_autoattack as smoke
-from gen_adversarial_tpu_torch.core.config import IMAGE_SIZE, read_flat_yaml
+import gen_adversarial_tpu_torch.smoke_cli_defaults as cli_smoke
+from gen_adversarial_tpu_torch.attacks import utils as attack_utils
+from gen_adversarial_tpu_torch.core.config import ATTACK_SUITES, IMAGE_SIZE, read_flat_yaml
+from gen_adversarial_tpu_torch.core.config import N_LATENTS as CONFIG_N_LATENTS
 from gen_adversarial_tpu_torch.gender import resampled_alphas
 from gen_adversarial_tpu_torch.models.e4e import encoder as e4e_encoder
 from gen_adversarial_tpu_torch.models.e4e.psp import PSP
@@ -139,7 +144,7 @@ def test_each_family_reaches_its_stages(run, family):
         row["apgd_step_s"] * row["full_apgd_steps"]
         + row["fab_iteration_s"] * row["full_fab_iterations"])
     assert row["k1_launches"] == row["k2_launches"] == 0 and row["apgd_peak_gib"] is None
-    assert row["fab_block"] == aa.fab_block(row["n_classes"], 1)
+    assert row["fab_block"] == attack_utils.class_block(row["n_classes"], 1)
 
 
 def test_the_run_restores_the_attacks_depths(run):
@@ -167,3 +172,76 @@ def test_cuda_without_a_device_raises(tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """One run of smoke_cli_defaults.main on the small ids family (the
+    matrix test's small VGG, test_torch_factory's NVAE with 4 latent groups),
+    rehearsed at batch 2 and EoT-2 over 2 images (CLI_FLAGS), the draw budget
+    and the class blocks' cotangent samples lowered so that both defaults
+    act there: an EoT chunk of 1 and blocks of 2 classes. Returns (exit
+    code, report, work dir, the names the run swaps before and after)."""
+    tmp = tmp_path_factory.mktemp("cli_defaults")
+    out, work = tmp / "CLI_DEFAULTS.json", tmp / "work"
+    configs = tmp / "configs"
+    configs.mkdir()
+    state = lambda: (dict(ATTACK_SUITES), aa.APGD_ITERS, aa.FAB_ITERS,  # noqa: E731
+                     factory.load_defense, cli_smoke.search_alphas.AlphaEvaluator,
+                     cli_smoke.deepfool_module.class_grads, cli_smoke.fab_module.class_grads)
+    before = state()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(factory, "make_classifier", _small_classifier)
+        mp.setattr(cli_smoke, "NVAE_CONFIG", NVAEConfig(**NVAE_CFG))
+        mp.setattr(cli_smoke, "CONFIGS", _small_configs(configs))
+        mp.setitem(CONFIG_N_LATENTS, "ids", N_LATENTS["ids"])
+        mp.setattr(cli_smoke, "CLI_FLAGS", ["--batch-size", "2", "--eot-steps", "2"])
+        mp.setattr(cli_smoke, "BATCH", 2)
+        mp.setattr(cli_smoke, "EOT_STEPS", 2)
+        mp.setattr(cli_smoke, "MAX_IMAGES", 2)
+        mp.setattr(cli_smoke, "SEARCH_SAMPLES", 2)
+        mp.setattr(cli_smoke, "SEARCH_STEPS", 1)
+        mp.setitem(factory.EOT_DRAW_BUDGET, ("ids", "ours"), 2)
+        mp.setattr(attack_utils, "COT_SAMPLES", 4)
+        code = cli_smoke.main(["--out", str(out), "--work", str(work), "--device", "cpu",
+                               "--only", "ids"])
+    return code, json.loads(out.read_text()), work, before, state()
+
+
+def test_cli_defaults_runs_every_command(cli_run):
+    """Exit 0 and the report's ids row: test_defense wrote DeepFool, C&W and
+    AutoAttack for the 2 images, every command loaded at the default chunk
+    (1), DeepFool's and FAB's Jacobians took the default block (2 classes),
+    make-adv kept what it wrote, grid and bo wrote their rows (1 and 5 + 1)
+    on the set they name; no kernel launched (CPU); the swapped names are
+    back after the run."""
+    code, report, work, before, after = cli_run
+    assert code == 0, report
+    row = report["families"]["ids"]
+    assert row["ok"] and sorted(row["commands"]) == sorted(cli_smoke.COMMANDS)
+    rows = row["commands"]
+    for command, r in rows.items():
+        assert r["ok"] and r["eot_chunks"] == [1], (command, r)
+        assert r["k1_launches"] == r["k2_launches"] == 0 and r["peak_gib"] is None
+        assert r["s"] > 0
+    results = rows["test_defense"]["results"]
+    assert sorted(results) == ["AutoAttack", "C&W", "Clean", "DeepFool"]
+    assert all(len(results[k]) == 2 for k in ("AutoAttack", "C&W", "DeepFool"))
+    assert results["Clean"] == 1.0  # the raised class-0 bias
+    assert rows["test_defense"]["deepfool_blocks"] == [2]
+    assert rows["test_defense"]["fab_blocks"] == [2]
+    adv = sorted((work / "ids" / "adv").rglob("*.png"))
+    assert rows["make_adv"]["kept"] == len(adv)
+    assert rows["grid"]["rows"] == 1 and rows["bo"]["rows"] == 6
+    assert row["grid_set"] == row["bo_set"] == ("made" if adv else "clean (make-adv kept none)")
+    assert report["cli_flags"] == ["--batch-size", "2", "--eot-steps", "2", "--device", "cpu"]
+    assert report["backend"] == "cpu" and report["nvidia_smi"] == "not available"
+    assert after == before
+
+
+def test_cli_defaults_refuses_a_gat_variable(monkeypatch, tmp_path):
+    """The commands run at their defaults: a GAT_* variable in the
+    environment stops the run before anything is made."""
+    monkeypatch.setenv("GAT_DF_COT_CHUNK", "2")
+    with pytest.raises(RuntimeError, match="GAT_DF_COT_CHUNK"):
+        cli_smoke.main(["--out", str(tmp_path / "C.json"), "--work", str(tmp_path / "w"),
+                        "--device", "cpu"])
+    assert not list(tmp_path.iterdir())

@@ -6,7 +6,8 @@ the twin's NVAE is test_torch_factory's small one (4 latent groups), and
 the configs are copies of configs/ with the ours_* alphas resampled to the
 small purifiers' latents. One run of `main` over one config of each kind,
 with one config's fabrication made to raise; then a rerun. The twin's ids
-files and two of its config copies are held against the JAX package.
+files and two of its config copies are held against the JAX package. Then
+`--cli-defaults` on four kinds at a batch of 4 and EoT-4.
 
 The files are made from seed MATRIX_SEED, where every row's images start
 misclassified, so DeepFool takes no step (its steps are held to JAX in
@@ -64,9 +65,10 @@ def _small_classifier(kind, n, device):
     return ResNetBackbone(n, layers=LAYERS, groups=32, base_width=4, device=device)
 
 
-def _small_configs(root: Path) -> Path:
-    """Copies of configs/ (KINDS and FAILING), ours_* alphas resampled."""
-    for name in KINDS + [FAILING]:
+def _small_configs(root: Path, names=None) -> Path:
+    """Copies of configs/ (`names`, default KINDS and FAILING), ours_*
+    alphas resampled."""
+    for name in names or KINDS + [FAILING]:
         text = (REPO / "configs" / f"{name}.yaml").read_text()
         if name.startswith("ours"):
             alphas = read_flat_yaml(REPO / "configs" / f"{name}.yaml")["interpolation_alphas"]
@@ -233,3 +235,59 @@ def test_jax_load_defense_on_the_twins_config_copies(matrix, tiny_classifier, na
         got = loaded.net(torch.tensor(x), draws)
     assert np.all(np.isfinite(np.asarray(want)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --cli-defaults: the kinds, and the draw budget and cotangent samples
+# lowered so that both defaults act at a batch of 4 and EoT-4 (the ids
+# ours_* config: an EoT chunk of 1, DeepFool's 8 classes in blocks of 2)
+DEFAULTS_KINDS = ["ours_cosine_noise_ids", "ablation_blur_ids", "no_defense_gender",
+                  "competitor_trades_cars"]
+DEFAULTS_BATCH, DEFAULTS_EOT = 4, 4
+
+
+@pytest.fixture(scope="module")
+def defaults_matrix(tmp_path_factory):
+    """One run of main with --cli-defaults --batch-size 4 over
+    DEFAULTS_KINDS; returns (exit code, report, work dir)."""
+    from gen_adversarial_tpu_torch.attacks import utils as attack_utils
+    tmp = tmp_path_factory.mktemp("matrix_defaults")
+    configs = tmp / "configs"
+    configs.mkdir()
+    out, work = tmp / "SMOKE_DEFAULTS.json", tmp / "work"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(smoke, "SEED", MATRIX_SEED)
+        mp.setattr(factory, "make_classifier", _small_classifier)
+        mp.setattr(smoke, "NVAE_CONFIG", NVAEConfig(**NVAE_CFG))
+        mp.setattr(smoke, "CONFIGS", _small_configs(configs, DEFAULTS_KINDS))
+        mp.setattr(smoke, "CLI_EOT_STEPS", DEFAULTS_EOT)
+        mp.setitem(factory.EOT_DRAW_BUDGET, ("ids", "ours"), DEFAULTS_BATCH)
+        mp.setattr(attack_utils, "COT_SAMPLES", 8)
+        code = smoke.main(["--out", str(out), "--work", str(work), "--device", "cpu",
+                           "--cli-defaults", "--batch-size", str(DEFAULTS_BATCH)])
+    return code, json.loads(out.read_text()), work
+
+
+@pytest.mark.parametrize("name,eot_steps,eot_chunk,block", [
+    ("ours_cosine_noise_ids", DEFAULTS_EOT, 1, 2), ("ablation_blur_ids", DEFAULTS_EOT, None, 2),
+    ("no_defense_gender", 1, None, None), ("competitor_trades_cars", 1, None, 2)])
+def test_cli_defaults_rows_record_the_chunk_and_blocks(defaults_matrix, name, eot_steps,
+                                                      eot_chunk, block):
+    """--cli-defaults runs each config as the CLI does without flags, on one
+    batch of 4 images all classified 0: the row is ok, DeepFool took its one
+    step, and the row holds the EoT chunk loaded (default_eot_chunk's; EoT 1
+    and no chunk for the bare classifiers) and the block DeepFool's class
+    Jacobian took (class_block's: 2 of 8 ids or 4 cars classes, one block
+    of gender's 2); results.json holds the 4 images; no extra row."""
+    code, report, work = defaults_matrix
+    assert code == 0 and report["ok"] == report["total"] == len(DEFAULTS_KINDS)
+    assert report["cli_defaults"] and report["extra"] == {}
+    assert (report["batch"], report["max_images"], report["eot_steps"]) == \
+        (DEFAULTS_BATCH, DEFAULTS_BATCH, DEFAULTS_EOT)
+    row = report["configs"][name]
+    assert row["ok"], row
+    assert (row["batch"], row["eot_steps"], row["eot_chunk"]) == (DEFAULTS_BATCH, eot_steps,
+                                                                  eot_chunk)
+    assert row["deepfool_blocks"] == [block] and row["deepfool_steps"] == [1]
+    assert row["labels"]["bias_raise"] > 0 and row["peak_gib"] is None
+    results = json.loads((work / "results" / name / "results.json").read_text())
+    assert len(results["DeepFool"]) == DEFAULTS_BATCH
